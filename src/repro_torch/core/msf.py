@@ -1,0 +1,183 @@
+"""Algebraic Awerbuch-Shiloach minimum spanning forest (paper Algorithm 1).
+
+Variants, as in ``repro.core.msf``:
+
+- ``variant="complete"`` (default, paper §IV-B): complete shortcutting
+  keeps every tree a star at the top of each round, so the starcheck
+  disappears and hooking fuses the line-10 projection into the
+  multilinear kernel (segment ids = p[src] are root ids).
+- ``variant="paper"`` (faithful Algorithm 1): starcheck, per-vertex
+  multilinear kernel, separate projection to roots, one shortcut round.
+- ``variant="pairwise"`` (paper §IV-A baseline): materialize
+  m_ij = (a_ij, p_j) first, then reduce.
+
+The JAX driver's ``lax.while_loop`` is a host loop here: one round per
+step, stopping when a round changes no parent (FastSV's convergence
+test, paper §V) or at the unroll guard; the stop test is one ``.item()``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import shortcut as sc
+from repro_torch.core.multilinear import (
+    min_outgoing_coo,
+    min_outgoing_coo_packed,
+    project_to_roots,
+)
+from repro_torch.core.semiring import IMAX, INF, segment_argmin
+from repro_torch.graphs.structures import Graph
+
+
+class MSFResult(NamedTuple):
+    weight: torch.Tensor  # float32 scalar: total MSF weight
+    parent: torch.Tensor  # int32 [n]: component representative per vertex
+    msf_eids: torch.Tensor  # int32 [n]: global eids of MSF edges, IMAX padded
+    n_msf_edges: torch.Tensor  # int32 scalar
+    iterations: torch.Tensor  # int32 scalar
+
+
+def starcheck(p: torch.Tensor) -> torch.Tensor:
+    """AS starcheck (paper §II-C): s_i = does vertex i belong to a star."""
+    gp = p[p]
+    s = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+    nonstar = gp != p
+    # Vertex i informs its grandparent the tree is not a star. Only the
+    # non-star vertices write (the reference drops the rest out of bounds).
+    s[gp[nonstar].long()] = False
+    s = s & ~nonstar
+    # Remaining vertices query their parent.
+    return s & s[p]
+
+
+def hook_and_tiebreak(p, r_w, r_eid, r_parent):
+    """Lines 11-13: hook star roots with their min outgoing edge, then break
+    the 2-cycles hooking introduces (larger root keeps the hook)."""
+    i = torch.arange(p.shape[0], dtype=p.dtype, device=p.device)
+    hooked = r_w < INF  # only roots receive a valid r entry
+    p_h = torch.where(hooked, r_parent, p)
+    # Tie break: i was a (hooked) root, i < p_i, and p_{p_i} == i.
+    t = hooked & (i < p_h) & (p_h[p_h] == i)
+    p_new = torch.where(t, i, p_h)
+    keep = hooked & ~t  # roots whose hook survives contribute their edge
+    return p_new, keep, t
+
+
+def record_edges(msf_eids, n_f, keep, r_eid):
+    """Append the surviving hook edges' eids to the MSF buffer (in place:
+    the driver owns the buffer, so no [n] copy per round)."""
+    pos = n_f + torch.cumsum(keep, 0, dtype=torch.int32) - 1
+    # Only the winners write (the reference drops the rest out of bounds).
+    win = keep.nonzero().squeeze(1)  # one host sync for the winners' count
+    msf_eids[pos[win].long()] = r_eid[win]
+    return msf_eids, n_f + keep.sum(dtype=torch.int32)
+
+
+def _make_msf_body(graph: Graph, variant, shortcut_fn, pack, segmin):
+    """One hook+shortcut round as ``body(state) -> state`` over the
+    6-tuple ``(p, total, msf_eids, n_f, it, done)``."""
+    n = graph.n
+    src, dst, w, eid, valid = graph.src, graph.dst, graph.w, graph.eid, graph.valid
+
+    def body_complete(state):
+        p, total, msf_eids, n_f, it, _ = state
+        p_prev = p
+        if variant == "pairwise":
+            # Paper §IV-A pairwise baseline: materialize m = (a_ij, p_j)
+            # into nnz-sized buffers (the extra writes), then reduce with
+            # f(p_i, m_ij). Algebraically identical to the fused kernel.
+            m_w = torch.where(valid, w, INF)
+            m_pd = torch.where(valid, p[dst], IMAX)
+            m_eid = torch.where(valid, eid, IMAX)
+            ps = p[src]
+            outgoing = (ps != m_pd) & valid
+            r = segment_argmin(m_w, m_eid, (m_pd,), ps, n, valid=outgoing)
+        elif pack:
+            r = min_outgoing_coo_packed(p, src, dst, w, eid, valid, n, segmin=segmin)
+        else:
+            r = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="root")
+        p_h, keep, _ = hook_and_tiebreak(p, r.w, r.eid, r.payload[0])
+        total = total + torch.where(keep, r.w, 0.0).sum()
+        msf_eids, n_f = record_edges(msf_eids, n_f, keep, r.eid)
+        p_next = shortcut_fn(p_h, p_prev)
+        done = torch.equal(p_next, p_prev)
+        return p_next, total, msf_eids, n_f, it + 1, done
+
+    def body_paper(state):
+        p, total, msf_eids, n_f, it, _ = state
+        p_prev = p
+        s = starcheck(p)
+        q = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="vertex", star=s)
+        r = project_to_roots(q, p, n)
+        p_h, keep, _ = hook_and_tiebreak(p, r.w, r.eid, r.payload[0])
+        total = total + torch.where(keep, r.w, 0.0).sum()
+        msf_eids, n_f = record_edges(msf_eids, n_f, keep, r.eid)
+        p_next = sc.shortcut_once(p_h, starcheck(p_h))
+        done = torch.equal(p_next, p_prev)
+        return p_next, total, msf_eids, n_f, it + 1, done
+
+    return body_paper if variant == "paper" else body_complete
+
+
+def _msf_init(graph: Graph, parent0):
+    dev = graph.device
+    if parent0 is None:
+        p0 = torch.arange(graph.n, dtype=torch.int32, device=dev)
+    else:
+        # Canonicalize: the hooking kernels rely on the every-tree-a-star
+        # invariant at the top of each round.
+        p0 = sc.complete_shortcut(torch.as_tensor(parent0).to(device=dev, dtype=torch.int32))
+    return (
+        p0,
+        torch.zeros((), dtype=torch.float32, device=dev),
+        torch.full((graph.n,), IMAX, dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev),
+        0,
+        False,
+    )
+
+
+def _msf_limit(n: int, max_iters) -> int:
+    return int(max_iters if max_iters is not None else 2 * int(n).bit_length() + 8)
+
+
+def run_flat(
+    graph: Graph,
+    *,
+    parent0=None,
+    variant: str = "complete",
+    shortcut: str = "complete",
+    capacity: int = 1 << 16,
+    max_iters: int | None = None,
+    unroll_guard: bool = True,
+    pack: bool = False,
+    segmin=None,
+) -> MSFResult:
+    """Flat AS driver for callers holding a *resolved* segmin callable
+    (the ``repro_torch.solve`` flat engine, :func:`flat_msf`)."""
+    limit = _msf_limit(graph.n, max_iters)
+    shortcut_fn = sc.make_shortcut_fn(shortcut, capacity) if variant != "paper" else None
+    body = _make_msf_body(graph, variant, shortcut_fn, pack, segmin)
+    state = _msf_init(graph, parent0)
+    while not state[5] and (not unroll_guard or state[4] < limit):
+        state = body(state)
+    p, total, msf_eids, n_f, it, _ = state
+    p = sc.complete_shortcut(p)  # canonical labels (complete variant: no-op)
+    return MSFResult(
+        weight=total, parent=p, msf_eids=msf_eids, n_msf_edges=n_f,
+        iterations=torch.tensor(it, dtype=torch.int32, device=graph.device),
+    )
+
+
+def flat_msf(graph: Graph, *, pack: bool = False, segmin: str | None = None,
+             **kw) -> MSFResult:
+    """Internal flat AS solve with a *string* segmin request, resolved by
+    ``repro_torch.solve.spec.resolve_flat_segmin`` for the graph's device."""
+    from repro_torch.solve.spec import resolve_flat_segmin  # lazy: layer cycle
+
+    return run_flat(
+        graph, pack=pack,
+        segmin=resolve_flat_segmin(segmin, pack, graph.device.type), **kw,
+    )

@@ -1,0 +1,17 @@
+# Solver API of the port: declarative SolveSpec → resolve → plan →
+# SolveReport. Only the flat engine is registered so far.
+#
+#     from repro_torch.solve import SolveSpec, plan
+#     report = plan(graph, SolveSpec()).solve()
+from repro_torch.solve.report import SolveReport, report_from_msf_result
+from repro_torch.solve.spec import ResolvedSpec, SolveSpec
+from repro_torch.solve.planner import (
+    PLAN_CACHE_MAXSIZE,
+    Plan,
+    clear_plan_cache,
+    plan,
+    plan_cache_info,
+    register_engine,
+    registered_modes,
+)
+from repro_torch.solve import engines as _engines  # noqa: F401 — registers built-ins

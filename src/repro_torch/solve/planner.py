@@ -1,0 +1,189 @@
+"""``plan(target, spec)`` — compile a :class:`SolveSpec` into a ``Plan``.
+
+The plan compiler resolves the spec against the target (concrete backend
+choices for the target's device), looks the (resolved spec, static
+shape, mesh) key up in a bounded per-process cache, and wraps the cached
+engine in a cheap :class:`Plan` handle:
+
+    report = plan(graph, SolveSpec()).solve()
+
+Engines are target-free: the cache stores machinery, never the target's
+tensors. Only ``mode="flat"`` is registered in the port so far; the
+other built-in modes, ``obs`` and ``tuning`` raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import OrderedDict
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+
+from repro_torch.solve import spec as _spec_mod
+from repro_torch.solve.report import SolveReport
+from repro_torch.solve.spec import MODES, ResolvedSpec, SolveSpec
+
+PLAN_CACHE_MAXSIZE = 64
+
+#: Built-in modes without a port yet, and where the ROADMAP schedules them.
+_NOT_PORTED = {
+    "coarsen": "ROADMAP Queue 1 item 8",
+    "stream": "ROADMAP Queue 1 item 9",
+    "dist": "ROADMAP Queue 1 item 12",
+}
+
+_lock = threading.Lock()
+_cache: "OrderedDict[Any, Any]" = OrderedDict()  # key -> engine (LRU)
+
+
+class _EngineDef(NamedTuple):
+    mode: str
+    builder: Callable  # (target, resolved, mesh) -> engine
+    cacheable: bool
+
+
+_engines: dict[str, _EngineDef] = {}
+
+
+def register_engine(mode: str, builder: Callable, *, cacheable: bool = False):
+    """Register a solver engine for ``mode``.
+
+    ``builder(target, resolved, mesh)`` returns an object with
+    ``solve(target, *args, **kw) -> SolveReport``. Set ``cacheable=True``
+    only if the engine is target-free. Registering a mode also makes it a
+    legal ``SolveSpec.mode`` value.
+    """
+    _engines[mode] = _EngineDef(mode, builder, cacheable)
+    if mode not in MODES:
+        _spec_mod.EXTRA_MODES.add(mode)
+    return builder
+
+
+def registered_modes() -> tuple:
+    return tuple(_engines)
+
+
+# ---------------------------------------------------------------------------
+# plan cache
+# ---------------------------------------------------------------------------
+
+def _shape_key(target) -> tuple:
+    """Static-shape fingerprint of a plan target (never its data)."""
+    if target is None:
+        return ("none",)
+    if isinstance(target, (int, np.integer)):
+        return ("n", int(target))
+    src = getattr(target, "src", None)
+    if src is not None:  # Graph
+        return ("graph", target.n, int(src.shape[0]))
+    raise TypeError(f"cannot plan against target of type {type(target).__name__}")
+
+
+def _cache_get(key):
+    with _lock:
+        eng = _cache.get(key)
+        if eng is not None:
+            _cache.move_to_end(key)
+        return eng
+
+
+def _cache_put(key, engine):
+    with _lock:
+        _cache[key] = engine
+        _cache.move_to_end(key)
+        while len(_cache) > PLAN_CACHE_MAXSIZE:
+            _cache.popitem(last=False)
+
+
+def plan_cache_info() -> tuple:
+    """(current entries, max entries) of the per-process plan cache."""
+    with _lock:
+        return len(_cache), PLAN_CACHE_MAXSIZE
+
+
+def clear_plan_cache() -> None:
+    with _lock:
+        _cache.clear()
+
+
+# ---------------------------------------------------------------------------
+# the compiler
+# ---------------------------------------------------------------------------
+
+def plan(target, spec: SolveSpec | None = None, *, mesh=None, **overrides) -> "Plan":
+    """Compile ``spec`` against ``target`` (a port ``Graph``) into a
+    reusable :class:`Plan`. Keyword ``overrides`` are folded into the spec
+    (``plan(g, pack=False)``). The plan runs on the device where the
+    graph's tensors live."""
+    if spec is None:
+        spec = SolveSpec(**overrides)
+    elif overrides:
+        spec = dataclasses.replace(spec, **overrides)
+    edef = _engines.get(spec.mode)
+    if edef is None:
+        if spec.mode in _NOT_PORTED:
+            raise NotImplementedError(
+                f"mode={spec.mode!r} is not ported yet ({_NOT_PORTED[spec.mode]})"
+            )
+        raise ValueError(
+            f"no engine registered for mode {spec.mode!r} "
+            f"(registered: {registered_modes()})"
+        )
+    if spec.obs != "off":
+        raise NotImplementedError(
+            f"obs={spec.obs!r}: observability is not ported yet "
+            f"(ROADMAP Queue 1 item 11); use obs='off'"
+        )
+    resolved = spec.resolve(target, mesh=mesh)
+    engine = None
+    key = None
+    if edef.cacheable:
+        # The key carries the *resolved* spec: two same-shape targets whose
+        # data or device resolves differently must not share an engine.
+        key = (resolved, _shape_key(target), mesh)
+        engine = _cache_get(key)
+    if engine is None:
+        engine = edef.builder(target, resolved, mesh)
+        if key is not None:
+            _cache_put(key, engine)
+    return Plan(spec=spec, resolved=resolved, target=target, mesh=mesh, engine=engine)
+
+
+class Plan:
+    """A compiled solve: spec + resolved backends + a (possibly shared)
+    engine, bound to one target."""
+
+    def __init__(self, *, spec, resolved, target, mesh, engine):
+        self.spec: SolveSpec = spec
+        self.resolved: ResolvedSpec = resolved
+        self.target = target
+        self.mesh = mesh
+        self._engine = engine
+
+    @property
+    def mode(self) -> str:
+        return self.spec.mode
+
+    @property
+    def engine(self):
+        return self._engine
+
+    @property
+    def cost(self):
+        """Analytic plan cost. The reference derives it from XLA HLO, which
+        has no counterpart in the port yet (ROADMAP Queue 1 item 11)."""
+        return None
+
+    def solve(self, *args, **kw) -> SolveReport:
+        """Run the full solve for this plan's target; flat plans accept
+        ``parent0=`` (array-like, moved to the graph's device) for warm
+        starts."""
+        return self._engine.solve(self.target, *args, **kw)
+
+    def __repr__(self):
+        return (
+            f"Plan(mode={self.mode!r}, target={_shape_key(self.target)}, "
+            f"pack={self.resolved.pack}, backend={self.resolved.backend!r})"
+        )

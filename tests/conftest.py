@@ -4,6 +4,12 @@ import pytest
 from repro.compat import make_mesh
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips elsewhere (tests/test_torch_gpu.py)"
+    )
+
+
 @pytest.fixture(scope="session")
 def host_mesh():
     # 1×1 mesh: smoke tests see the single CPU device (the 512-device

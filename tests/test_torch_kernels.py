@@ -1,0 +1,116 @@
+"""The port's segment-min kernel module against the JAX package's.
+
+On the CPU the port's wrapper runs its plain version; it must equal the
+Pallas kernel (interpret mode) and the jnp oracle exactly, drop
+out-of-range ids as they do, and never count a launch. A CUDA request
+never falls back: the launcher raises on CPU tensors, and a missing
+``nvcc`` raises.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core.semiring import pack32 as jax_pack32  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+UMAX = 0xFFFFFFFF
+
+
+def _keys_segs(n_seg, e, seed, seg_lo=0, seg_hi=None):
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(seg_lo, n_seg if seg_hi is None else seg_hi, e).astype(np.int32)
+    keys = np.asarray(
+        jax_pack32(jnp.array(rng.integers(1, 256, e)), jnp.array(rng.integers(0, 1 << 20, e)))
+    ).astype(np.uint32)
+    keys[rng.random(e) < 0.1] = UMAX  # a share of identity keys
+    return keys, seg
+
+
+def _port(keys, seg, n_seg):
+    return ops.segment_min_flat(
+        torch.from_numpy(keys.astype(np.int64)), torch.from_numpy(seg), n_seg
+    ).numpy()
+
+
+@pytest.mark.parametrize(
+    "n_seg,e,seg_lo,seg_hi",
+    [(64, 0, 0, None), (128, 500, 0, None), (300, 2000, 0, None), (37, 129, 0, None),
+     (50, 700, -7, 60)],  # last: ids out of range on both sides are dropped
+    ids=["64x0", "128x500", "300x2000", "37x129", "out_of_range"],
+)
+def test_segment_min_flat_matches_pallas_and_ref(n_seg, e, seg_lo, seg_hi):
+    keys, seg = _keys_segs(n_seg, e, e + n_seg, seg_lo, seg_hi)
+    ops.segment_min_flat.launches = 0
+    got = _port(keys, seg, n_seg)
+    assert got.dtype == np.int64 and got.shape == (n_seg,)
+    pallas = np.asarray(jax_ops.segment_min_flat(jnp.array(keys), jnp.array(seg), num_segments=n_seg))
+    oracle = np.asarray(jax_ref.segment_min_flat_ref(jnp.array(keys), jnp.array(seg), n_seg))
+    np.testing.assert_array_equal(got, pallas.astype(np.int64))
+    np.testing.assert_array_equal(got, oracle.astype(np.int64))
+    assert ops.segment_min_flat.launches == 0  # the CPU path launches nothing
+
+
+def test_plain_version_is_what_cpu_runs():
+    keys, seg = _keys_segs(100, 1000, 3)
+    k, s = torch.from_numpy(keys.astype(np.int64)), torch.from_numpy(seg)
+    assert torch.equal(ops.segment_min_flat(k, s, 100), ref.segment_min_flat_ref(k, s, 100))
+    assert ops.make_packed_segmin("auto", "cpu") is ref.segment_min_flat_ref
+    assert ops.make_packed_segmin("torch", "cuda") is ref.segment_min_flat_ref
+    assert ops.make_packed_segmin("auto", "cuda") is ops.segment_min_flat
+    assert ops.make_packed_segmin("cuda", "cpu") is ops.segment_min_flat
+    assert ops.flat_segmin_backend("sorted") == "auto"
+    assert ops.flat_segmin_backend("cuda") == "cuda"
+    with pytest.raises(ValueError):
+        ops.make_packed_segmin("pallas")
+    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
+        ops.make_packed_segmin("sorted")
+
+
+def test_wrapper_rejects_bad_inputs():
+    k = torch.zeros(8, dtype=torch.int64)
+    s = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int64"):
+        ops.segment_min_flat(k.to(torch.int32), s, 4)
+    with pytest.raises(ValueError, match="int32"):
+        ops.segment_min_flat(k, s.to(torch.int64), 4)
+    with pytest.raises(ValueError, match="1-D"):
+        ops.segment_min_flat(k, s[:4], 4)
+    with pytest.raises(ValueError, match="1-D"):
+        ops.segment_min_flat(k.view(2, 4), s.view(2, 4), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.segment_min_flat(torch.zeros(16, dtype=torch.int64)[::2], s, 4)
+    with pytest.raises(ValueError, match="num_segments"):
+        ops.segment_min_flat(k, s, -1)
+    with pytest.raises(TypeError):
+        ops.segment_min_flat(k.numpy(), s, 4)
+
+
+def test_launcher_never_falls_back_to_cpu():
+    k = torch.zeros(8, dtype=torch.int64)
+    s = torch.zeros(8, dtype=torch.int32)
+    out = torch.empty(4, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ops._launch_segment_min_flat(k, s, out)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build("segment_min_flat")
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_is_keyed_on_source_hash():
+    assert build.sources() == ["segment_min_flat"]
+    lib = build.library_path("segment_min_flat")
+    assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
+    assert lib == build.library_path("segment_min_flat")
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
