@@ -5,20 +5,38 @@
 
 Phases:
   1. device: the card's name and power limit;
-  2. build: every CUDA kernel from src/repro_torch/kernels/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card, exactly;
+  2. build: every CUDA kernel from src/repro_torch/kernels/csrc with nvcc,
+     one nvcc per source, all at once;
+  3. each kernel against its plain PyTorch version on the card, exactly:
+     segment_min_flat on adversarial layouts; segment_min_sorted on the
+     adversarial sorted layouts (one segment, all singletons, runs over
+     many tiles, empty segments and gaps, E = 0, odd tails), one run
+     holding 90% of the edges, and the dedupe inputs of level 0 of both
+     coarsen graphs (recorded from a replay of the levels);
   4. the property-suite graph classes solved on the card and on the CPU
-     (complete/csp/os x pack on/off): every SolveReport field identical;
-  5. the main path, plan(graph, SolveSpec()).solve(), on R-MAT scale 20
+     (flat: complete/csp/os x pack on/off; coarsen with a small cutoff):
+     every SolveReport field identical;
+  5. the flat path, plan(graph, SolveSpec()).solve(), on R-MAT scale 20
      (Graph500 parameters, edge factor 8): pack32 and the CUDA kernel
      resolved, one kernel launch per AS round, forest weight and size
      checked against scipy, result identical to segmin="torch";
   6. the same on the 1024 x 1024 grid road proxy;
-  7. times: each kernel (CUDA events) on the inputs of every AS round of
-     the R-MAT main path, beside its plain version, the one PyTorch
-     library call and its memory bound; end-to-end solve times with the
-     kernel and with segmin="torch", host syncs per solve, and a
-     torch.profiler breakdown of one solve.
+  6b. the coarsen path, plan(graph, SolveSpec(mode="coarsen")).solve(), on
+     R-MAT scale 19, edge factor 8: level pack32, device dedupe, the hook
+     on segment_min_flat and the dedupe on segment_min_sorted resolved;
+     the sorted kernel launched once per level, the flat kernel twice per
+     hook round and once per residual round; weight and size against
+     scipy; eid set and partition equal to the flat solve's; the report equal
+     to the plain solve's (segmin="torch", dedupe="host");
+  6c. the same on the 1024 x 1024 grid;
+  7. times: each kernel (device time from torch.profiler, and CUDA
+     events around back-to-back calls) on the inputs of its main path
+     (segment_min_flat: every AS round of the R-MAT flat solve;
+     segment_min_sorted: every level's dedupe of both coarsen graphs),
+     beside its plain version, the one PyTorch library call and its memory
+     bound; end-to-end solve times (flat: kernel vs segmin="torch";
+     coarsen vs flat), host syncs per solve, and torch.profiler
+     breakdowns.
 
 Prints the kernels JSON line before the last line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -32,6 +50,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -39,6 +58,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 RMAT = dict(scale=20, edge_factor=8, seed=0)
+# The largest Graph500 R-MAT at edge factor 8 whose levels take pack32:
+# they need 2 * next_pow2(m) < 2^24 - 1 (m = undirected edges).
+RMAT_COARSEN = dict(scale=19, edge_factor=8, seed=0)
 GRID = (1024, 1024)
 # (name, n, m, weight levels, multigraph, seed): the fixed-seed classes
 # of tests/test_msf_properties.py, drawn the same way.
@@ -130,6 +152,26 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``: the self time of every kernel and
+    copy it ran, summed by torch.profiler over ``reps`` calls. Unlike
+    :func:`time_ms` it leaves out the host's time to enqueue the call,
+    which bounds a small launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+
+
 def kernel_cases(dev):
     """Phase 3: the segment-min kernel against its plain version, exactly."""
     import torch
@@ -174,8 +216,85 @@ def kernel_cases(dev):
     return max_err
 
 
+def sorted_layouts(dev):
+    """Adversarial sorted-id layouts at scale: (label, segs, num_segments)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def ids(n, e, run):
+        # sorted ids in runs of about `run` edges, with empty segments between
+        steps = (torch.rand(e, generator=gen, device=dev) < 1.0 / run).to(torch.int32)
+        jump = torch.randint(1, 4, (e,), generator=gen, device=dev, dtype=torch.int32)
+        return torch.clamp(torch.cumsum(steps * jump, 0, dtype=torch.int32), max=n - 1)
+
+    e = 1 << 22
+    big = torch.zeros(e, dtype=torch.int32, device=dev)
+    big[e // 20:] = 1
+    big[e // 20 + int(0.9 * e):] = 2
+    return [
+        ("one segment", torch.zeros(e, dtype=torch.int32, device=dev), 1),
+        ("all singletons", torch.arange(e, dtype=torch.int32, device=dev), e),
+        ("one run holding 90% of the edges", big, 3),
+        ("runs of ~3000 over many tiles, gaps", ids(e, e, 3000), e),
+        ("runs of ~3, gaps (empty segments)", ids(e, e, 3), e),
+        ("E = 0", torch.zeros(0, dtype=torch.int32, device=dev), 1000),
+        ("odd tail 1025 of 127 segments", ids(127, 1025, 9), 127),
+        ("odd tail 1023 x 1023 singletons", torch.arange(1023, dtype=torch.int32, device=dev),
+         1023),
+        ("ids past num_segments dropped", ids(1 << 20, e, 4), 1 << 19),
+    ]
+
+
+def sorted_kernel_cases(dev, recorded) -> int:
+    """Phase 3: the sorted-segment kernel against its plain version,
+    exactly, on the adversarial layouts and on ``recorded`` dedupe inputs
+    ((label, keys, segs, num_segments) from a replay of the levels)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for label, segs, n in sorted_layouts(dev):
+        e = segs.numel()
+        keys = torch.randint(0, ref.PACK_IDENTITY, (e,), generator=gen, device=dev,
+                             dtype=torch.int64)
+        hole = torch.rand(e, generator=gen, device=dev) < 0.1
+        cases.append((label, torch.where(hole, ref.PACK_IDENTITY, keys), segs, n))
+    max_err = 0
+    for label, keys, segs, n in cases + list(recorded):
+        got = ops.segment_min_sorted(keys, segs, n)
+        want = ref.segment_min_sorted_ref(keys, segs, n)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape, f"{label}: shape/dtype")
+        err = int((got - want).abs().max()) if n else 0
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"segment_min_sorted != plain version ({label}), "
+                                      f"max err {err}")
+        print(f"  segment_min_sorted {label}: E={keys.numel()} n={n} exact", flush=True)
+    return max_err
+
+
+def record_dedupe_inputs(g) -> list:
+    """Replay the coarsen main path's levels and record what each level's
+    dedupe hands the sorted segment-min: [(keys, segs, num_segments)]."""
+    from repro_torch.coarsen import CoarsenConfig, run_levels
+    from repro_torch.kernels import ops
+
+    inputs = []
+
+    def record(keys, segs, n):
+        inputs.append((keys.clone(), segs.clone(), n))
+        return ops.segment_min_sorted(keys, segs, n)
+
+    run_levels(g, CoarsenConfig(), segmins=(ops.segment_min_flat, record))
+    return inputs
+
+
 def small_graphs():
     """Phase 4: the property-suite classes, card vs CPU, every field."""
+    from repro_torch.coarsen import CoarsenConfig
     from repro_torch.solve import SolveSpec, plan
 
     for case in FIXED_CASES:
@@ -187,7 +306,12 @@ def small_graphs():
                 rc, rp = plan(gc, spec).solve(), plan(gp, spec).solve()
                 check(same_report(rc, rp),
                       f"{case[0]} shortcut={shortcut} pack={pack}: card != CPU")
-        print(f"  {case[0]}: card == CPU over complete/csp/os x pack on/off", flush=True)
+        for fused in (False, True):
+            spec = SolveSpec(mode="coarsen", coarsen=CoarsenConfig(cutoff=4), fused=fused)
+            rc, rp = plan(gc, spec).solve(), plan(gp, spec).solve()
+            check(same_report(rc, rp), f"{case[0]} coarsen fused={fused}: card != CPU")
+        print(f"  {case[0]}: card == CPU over complete/csp/os x pack on/off and coarsen",
+              flush=True)
 
 
 def main_path(label, g):
@@ -237,19 +361,85 @@ def main_path(label, g):
     return launches
 
 
-def solve_times(g, reps: int = 3) -> dict:
-    """Median end-to-end solve seconds, kernel vs segmin='torch', in turns
-    after one warm-up each."""
+def coarsen_path(label, g, flat_rep):
+    """Phases 6b/6c: drive plan(g, SolveSpec(mode="coarsen")).solve() and
+    check it; ``flat_rep`` is the flat solve's report on the same graph."""
+    import numpy as np
     import torch
 
+    from repro_torch.coarsen.relabel import canonical_minvertex_labels
+    from repro_torch.graphs.structures import nx_free_msf_weight, nx_free_n_components
+    from repro_torch.kernels import ops
     from repro_torch.solve import SolveSpec, plan
 
-    specs = {"cuda": SolveSpec(), "torch": SolveSpec(segmin="torch")}
+    p = plan(g, SolveSpec(mode="coarsen"))
+    ops.segment_min_flat.launches = ops.segment_min_sorted.launches = 0
+    t0 = time.perf_counter()
+    rep = p.solve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"segment_min_flat": ops.segment_min_flat.launches,
+                "segment_min_sorted": ops.segment_min_sorted.launches}
+    be = p.engine.last_backends
+    check(be.pack is True, f"{label}: the levels did not resolve pack32")
+    check(be.dedupe == "device", f"{label}: dedupe resolved to {be.dedupe!r}, not 'device'")
+    check(be.hook is ops.segment_min_flat, f"{label}: the level hook is not the flat kernel")
+    check(be.dedupe_segmin is ops.segment_min_sorted,
+          f"{label}: the dedupe segment-min is not the sorted kernel")
+    cfg = p.resolved.coarsen
+    k, n_levels = cfg.rounds_per_level, len(rep.levels)
+    residual_n, residual_m = (rep.levels[-1].n_next, rep.levels[-1].m_next) if n_levels else (
+        g.n, None)
+    # A level that made no progress ran its hook rounds but not its dedupe.
+    stalled = int(n_levels < cfg.max_levels and residual_n > cfg.cutoff
+                  and (residual_m or 0) > 0)
+    residual_rounds = rep.iterations - k * n_levels
+    check(n_levels > 0 and launches["segment_min_sorted"] == n_levels,
+          f"{label}: {launches['segment_min_sorted']} sorted launches for {n_levels} levels")
+    want_flat = 2 * k * (n_levels + stalled) + residual_rounds
+    check(launches["segment_min_flat"] == want_flat,
+          f"{label}: {launches['segment_min_flat']} flat launches, expected {want_flat}")
+
+    valid = g.valid.cpu().numpy()
+    eid = g.eid.cpu().numpy()[valid]
+    w_by_eid = np.zeros(int(eid.max()) + 1, np.float64)
+    w_by_eid[eid] = g.w.cpu().numpy()[valid]
+    weight64 = float(w_by_eid[rep.msf_eids].sum())
+    oracle = nx_free_msf_weight(g)
+    ncomp = nx_free_n_components(g)
+    check(weight64 == oracle, f"{label}: coarsen MSF weight {weight64} != scipy {oracle}")
+    check(rep.n_msf_edges == g.n - ncomp,
+          f"{label}: {rep.n_msf_edges} MSF edges != n - components = {g.n - ncomp}")
+    check(set(rep.msf_eids.tolist()) == set(flat_rep.msf_eids.tolist()),
+          f"{label}: coarsen eid set differs from the flat solve's")
+    # coarsen labels each component by its minimum vertex, the flat solve
+    # by its AS root: the same partition, compared in the coarsen labeling
+    flat_labels = canonical_minvertex_labels(flat_rep.parent, g.n).numpy()
+    check(np.array_equal(rep.parent, flat_labels),
+          f"{label}: coarsen partition differs from the flat solve's")
+    plain = plan(g, SolveSpec(mode="coarsen", segmin="torch", dedupe="host")).solve()
+    check(same_report(rep, plain),
+          f"{label}: report differs from the plain solve (segmin='torch', dedupe='host')")
+    print(f"  {label}: n={g.n} E={g.num_directed_edges} levels={list(map(tuple, rep.levels))} "
+          f"rounds={rep.iterations} launches={launches} weight={weight64} (scipy {oracle}) "
+          f"msf_edges={rep.n_msf_edges} components={ncomp} first_solve_s={first_s:.3f}",
+          flush=True)
+    return launches, rep
+
+
+def solve_times(g, specs: dict, reps: int = 3) -> dict:
+    """Median end-to-end solve seconds of each spec, in turns after one
+    warm-up each."""
+    import torch
+
+    from repro_torch.solve import plan
+
     times = {k: [] for k in specs}
     for k in specs:
         plan(g, specs[k]).solve()
+    order = list(specs)
     for i in range(reps):
-        for k in (("cuda", "torch") if i % 2 == 0 else ("torch", "cuda")):
+        for k in (order if i % 2 == 0 else order[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             plan(g, specs[k]).solve()
@@ -281,16 +471,71 @@ def round_times(g) -> list:
         idx = segs.long()
         out = torch.full((n,), ref.PACK_IDENTITY, dtype=torch.int64, device=keys.device)
         bytes_ = keys.numel() * keys.element_size() + segs.numel() * segs.element_size() + n * 8
+        kernel = partial(ops.segment_min_flat, keys, segs, n)
+        library = partial(out.scatter_reduce_, 0, idx, keys, "amin", include_self=True)
         rows.append({
-            "kernel_ms": time_ms(lambda: ops.segment_min_flat(keys, segs, n)),
-            "plain_ms": time_ms(lambda: ref.segment_min_flat_ref(keys, segs, n)),
-            "library_ms": time_ms(
-                lambda: out.scatter_reduce_(0, idx, keys, "amin", include_self=True)),
+            "kernel_ms": device_ms(kernel),
+            "kernel_call_ms": time_ms(kernel),
+            "plain_ms": device_ms(partial(ref.segment_min_flat_ref, keys, segs, n)),
+            "library_ms": device_ms(library),
             "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
             "bytes": bytes_,
             "identity_key_share": float((keys == ref.PACK_IDENTITY).double().mean()),
         })
     return rows
+
+
+def level_times(inputs) -> list:
+    """The sorted kernel, its plain version and the one PyTorch library call
+    timed on each level's dedupe inputs, beside the level's memory bound:
+    keys and ids read once, the output written once."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for keys, segs, n in inputs:
+        idx = segs.long()
+        out = torch.full((n,), ref.PACK_IDENTITY, dtype=torch.int64, device=keys.device)
+        bytes_ = keys.numel() * keys.element_size() + segs.numel() * segs.element_size() + n * 8
+        kernel = partial(ops.segment_min_sorted, keys, segs, n)
+        library = partial(out.scatter_reduce_, 0, idx, keys, "amin", include_self=True)
+        rows.append({
+            "E": keys.numel(),
+            "num_segments": n,
+            "kernel_ms": device_ms(kernel),
+            "kernel_call_ms": time_ms(kernel),
+            "plain_ms": device_ms(partial(ref.segment_min_sorted_ref, keys, segs, n)),
+            "library_ms": device_ms(library),
+            "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
+            "bytes": bytes_,
+            "identity_key_share": float((keys == ref.PACK_IDENTITY).double().mean()),
+        })
+    return rows
+
+
+def coarsen_breakdown(g) -> dict:
+    """Host seconds of the default coarsen solve's stages, each ended by a
+    device sync: the levels, the residual flat solve, and the rest (the
+    merge into original ids and the report)."""
+    import torch
+
+    from repro_torch.coarsen import CoarsenConfig, run_levels
+    from repro_torch.core.msf import flat_msf
+    from repro_torch.solve import SolveSpec, plan
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, total = timed(plan(g, SolveSpec(mode="coarsen")).solve)
+    prelude, levels = timed(lambda: run_levels(g, CoarsenConfig()))
+    _, residual = timed(lambda: flat_msf(prelude.residual, pack=True))
+    return {"total_s": total, "levels_s": levels, "residual_s": residual,
+            "rest_s": total - levels - residual}
 
 
 def count_syncs(fn) -> int:
@@ -309,8 +554,9 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def profile_solve(g, top: int = 8) -> dict:
-    """One default solve under torch.profiler: device time by kernel."""
+def profile_solve(g, spec=None, top: int = 8) -> dict:
+    """One solve (default: ``SolveSpec()``) under torch.profiler: device
+    time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -319,7 +565,7 @@ def profile_solve(g, top: int = 8) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        plan(g, SolveSpec()).solve()
+        plan(g, spec or SolveSpec()).solve()
         torch.cuda.synchronize()
     # Device-side rows only (kernels, copies): an op row repeats its kernels' time.
     rows = [e for e in prof.key_averages()
@@ -360,6 +606,14 @@ def main():
 
     phase("3 kernels vs plain versions on the card")
     max_err = kernel_cases("cuda")
+    t0 = time.perf_counter()
+    g_rmat19 = rmat_graph(**RMAT_COARSEN, device="cuda")
+    g_grid = grid_road_graph(*GRID, device="cuda")
+    print(f"  coarsen graphs generated in {time.perf_counter() - t0:.1f} s (host)", flush=True)
+    dedupe_in = {"rmat_s19_ef8": record_dedupe_inputs(g_rmat19),
+                 "grid_1024x1024": record_dedupe_inputs(g_grid)}
+    level0 = [(f"level-0 dedupe of {label}", *ins[0]) for label, ins in dedupe_in.items()]
+    max_err_sorted = sorted_kernel_cases("cuda", level0)
 
     phase("4 small graphs, card vs CPU")
     small_graphs()
@@ -371,41 +625,89 @@ def main():
     launches = main_path("rmat_s20_ef8", g_rmat)
 
     phase("6 main path: grid 1024 x 1024")
-    g_grid = grid_road_graph(*GRID, device="cuda")
-    main_path("grid_1024x1024", g_grid)
+    launches_grid = main_path("grid_1024x1024", g_grid)
+
+    from repro_torch.solve import SolveSpec, plan
+
+    coarsen_launches = {}
+    for ph, label, g in (("6b", "rmat_s19_ef8", g_rmat19), ("6c", "grid_1024x1024", g_grid)):
+        phase(f"{ph} coarsen path: {label}")
+        coarsen_launches[label], _ = coarsen_path(label, g, plan(g, SolveSpec()).solve())
 
     phase("7 times")
     per_round = round_times(g_rmat)
     print(json.dumps({"segment_min_flat_per_round_rmat_s20_ef8": per_round, "card": smi}))
-    mean = {k: statistics.fmean(r[k] for r in per_round)
-            for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-    from repro_torch.solve import SolveSpec, plan
+    fields = ("kernel_ms", "kernel_call_ms", "plain_ms", "library_ms", "bound_ms")
+    mean = {k: statistics.fmean(r[k] for r in per_round) for k in fields}
+    per_level = {label: level_times(ins) for label, ins in dedupe_in.items()}
+    del dedupe_in, level0
+    print(json.dumps({"segment_min_sorted_per_level": per_level, "card": smi}))
+    all_levels = [r for rows in per_level.values() for r in rows]
+    mean_sorted = {k: statistics.fmean(r[k] for r in all_levels) for k in fields}
 
     solve = {}
     for label, g in (("rmat_s20_ef8", g_rmat), ("grid_1024x1024", g_grid)):
         p = plan(g, SolveSpec())
         solve[label] = {
-            **solve_times(g),
+            **solve_times(g, {"cuda": SolveSpec(), "torch": SolveSpec(segmin="torch")}),
             "rounds": p.solve().iterations,
             "host_syncs_per_solve": count_syncs(p.solve),
             "profile": profile_solve(g),
         }
     print(json.dumps({"solve_seconds_median_of_3": solve, "card": smi}))
+    coarsen = {}
+    coarsen_spec = SolveSpec(mode="coarsen")
+    for label, g in (("rmat_s19_ef8", g_rmat19), ("grid_1024x1024", g_grid)):
+        p = plan(g, coarsen_spec)
+        rep = p.solve()
+        coarsen[label] = {
+            **solve_times(g, {"coarsen": coarsen_spec, "flat": SolveSpec()}),
+            "levels": [tuple(lv) for lv in rep.levels],
+            "rounds": rep.iterations,
+            "host_syncs_per_coarsen_solve": count_syncs(p.solve),
+            "stages": coarsen_breakdown(g),
+            "profile_coarsen": profile_solve(g, coarsen_spec),
+        }
+    print(json.dumps({"coarsen_vs_flat_seconds_median_of_3": coarsen, "card": smi}))
     print(json.dumps({"kernels": [{
         "name": "segment_min_flat",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_min_flat.cu",
         "replaces": "src/repro/kernels/segment_min_bucketed.py:113",
         "launches": launches,
+        "launches_by_path": {
+            "flat rmat_s20_ef8": launches, "flat grid_1024x1024": launches_grid,
+            **{f"coarsen {k}": v["segment_min_flat"] for k, v in coarsen_launches.items()}},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
-        "kernel_ms": mean["kernel_ms"],
+        "call_ms": mean["kernel_call_ms"],
         "plain_ms": mean["plain_ms"],
         "bound_ms": mean["bound_ms"],
         "bound_by": "bytes",
         "library_ms": mean["library_ms"],
-        "timed_on": "each AS round's inputs of the R-MAT main path, mean per launch",
+        "timed_on": "each AS round's inputs of the R-MAT flat main path, mean per launch; "
+                    "ms, plain_ms, library_ms: device time (torch.profiler); call_ms: CUDA "
+                    "events around back-to-back calls, the wrapper's host time included",
+    }, {
+        "name": "segment_min_sorted",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_min_sorted.cu",
+        "replaces": "src/repro/kernels/segment_min_sorted.py:117",
+        "launches": coarsen_launches["rmat_s19_ef8"]["segment_min_sorted"],
+        "launches_by_path": {f"coarsen {k}": v["segment_min_sorted"]
+                             for k, v in coarsen_launches.items()},
+        "matches_plain": True,
+        "max_abs_err": max_err_sorted,
+        "ms": mean_sorted["kernel_ms"],
+        "call_ms": mean_sorted["kernel_call_ms"],
+        "plain_ms": mean_sorted["plain_ms"],
+        "bound_ms": mean_sorted["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": mean_sorted["library_ms"],
+        "timed_on": "each level's dedupe inputs of both coarsen main paths, mean per launch; "
+                    "ms, plain_ms, library_ms: device time (torch.profiler); call_ms: CUDA "
+                    "events around back-to-back calls, the wrapper's host time included",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,8 +1,7 @@
 """Static configuration of the contract-and-filter pipeline.
 
-Leaf module, imported by the ``repro_torch.solve`` spec layer. The
-coarsening engine itself is not ported yet (ROADMAP Queue 1 item 8);
-the config exists now because ``SolveSpec`` validates against it.
+Leaf module, imported by the coarsening engine and the
+``repro_torch.solve`` spec layer alike, so it imports neither.
 """
 from __future__ import annotations
 
@@ -10,7 +9,8 @@ import dataclasses
 
 #: Every segment-min backend request the port understands, in its own
 #: vocabulary ("torch" = the plain version, "cuda" = the hand-written
-#: kernel). "sorted" is dedupe-only; flat sites degrade it to "auto".
+#: kernel). "sorted" selects the sorted-segment kernel at the dedupe and
+#: degrades to "auto" at the flat sites (the hook reductions).
 SEGMIN_BACKENDS = (None, "auto", "torch", "cuda", "sorted")
 
 #: Edge-dedupe backends: "device" = the sort + pack32 segment-min

@@ -22,3 +22,10 @@ def segment_min_flat_ref(keys: torch.Tensor, segs: torch.Tensor, num_segments: i
     out = torch.full((num_segments + 1,), PACK_IDENTITY, dtype=torch.int64, device=keys.device)
     out.scatter_reduce_(0, idx, keys, "amin", include_self=True)
     return out[:num_segments]
+
+
+def segment_min_sorted_ref(keys: torch.Tensor, segs: torch.Tensor, num_segments: int):
+    """Plain version of the sorted-segment kernel: the same reduction as
+    :func:`segment_min_flat_ref`. Sortedness of ``segs`` only restricts how
+    the ids may be laid out, not what the result is."""
+    return segment_min_flat_ref(keys, segs, num_segments)

@@ -1,5 +1,5 @@
 # Solver API of the port: declarative SolveSpec → resolve → plan →
-# SolveReport. Only the flat engine is registered so far.
+# SolveReport. The flat and coarsen engines are registered so far.
 #
 #     from repro_torch.solve import SolveSpec, plan
 #     report = plan(graph, SolveSpec()).solve()

@@ -8,9 +8,9 @@ engine in a cheap :class:`Plan` handle:
     report = plan(graph, SolveSpec()).solve()
 
 Engines are target-free: the cache stores machinery, never the target's
-tensors. Only ``mode="flat"`` is registered in the port so far; the
-other built-in modes, ``obs`` and ``tuning`` raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+tensors. ``mode="flat"`` and ``mode="coarsen"`` are registered in the
+port so far; the other built-in modes, ``obs`` and ``tuning`` raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -29,7 +29,6 @@ PLAN_CACHE_MAXSIZE = 64
 
 #: Built-in modes without a port yet, and where the ROADMAP schedules them.
 _NOT_PORTED = {
-    "coarsen": "ROADMAP Queue 1 item 8",
     "stream": "ROADMAP Queue 1 item 9",
     "dist": "ROADMAP Queue 1 item 12",
 }

@@ -22,7 +22,7 @@ class SolveReport(NamedTuple):
     parent: np.ndarray  # int32 [n] component representative per vertex
     n_msf_edges: int
     iterations: int  # hook/shortcut rounds (levels + residual)
-    levels: Tuple  # per-level rows; () when no levels ran
+    levels: Tuple  # per-level LevelStats rows (coarsen); () when no levels ran
     host_roundtrips: int  # per-level host round-trips (0 = device-resident)
     recompiles: int  # distinct executables compiled (stream mode)
     raw: Any  # engine-native result (MSFResult)

@@ -2,8 +2,9 @@
 
 ``SolveSpec`` is a frozen, hashable description of *which* MSF engine to
 run (``mode``) and *how* (backend knobs). It has the fields and static
-validation of ``repro.solve.spec.SolveSpec``; only ``mode="flat"`` has an
-engine in the port so far (``repro_torch.solve.planner``).
+validation of ``repro.solve.spec.SolveSpec``; ``mode="flat"`` and
+``mode="coarsen"`` have engines in the port so far
+(``repro_torch.solve.engines``).
 
 This module is also the single home of the backend auto-detect rules.
 Where the JAX package keys on ``jax.default_backend() == "tpu"``, the
@@ -14,7 +15,9 @@ port keys on the target graph's device type being ``"cuda"``:
 - :func:`resolve_dedupe` — ``dedupe="auto"`` → device on CUDA, host
   elsewhere;
 - :func:`resolve_flat_segmin` — segment-min selection for flat
-  (unsorted-segment) reductions, via ``repro_torch.kernels.ops``.
+  (unsorted-segment) reductions, via ``repro_torch.kernels.ops``;
+- :func:`resolve_level_segmins` — the coarsening levels' hook and dedupe
+  segment-mins.
 """
 from __future__ import annotations
 
@@ -86,6 +89,34 @@ def resolve_flat_segmin(segmin: str | None, pack: bool, device_type: str = "cuda
     from repro_torch.kernels.ops import flat_segmin_backend, make_packed_segmin
 
     return make_packed_segmin(flat_segmin_backend(segmin) or "auto", device_type)
+
+
+def resolve_level_segmins(segmin: str | None, use_pack: bool, device_type: str = "cuda"):
+    """(hook segmin, dedupe segmin) callables for the coarsening levels, or
+    ``(None, None)`` when ``use_pack`` is off.
+
+    The hook reduction (``coarsen.contract``) sees *unsorted* segment ids
+    (roots of the current parent vector), so it resolves as a flat site:
+    "sorted" degrades to "auto". The dedupe's ids are the boundary prefix
+    sum over sorted pair keys: ``kernels.ops.dedupe_segmin_backend``.
+
+    One deliberate difference from ``repro.solve.spec.resolve_level_segmins``:
+    for ``segmin`` None the reference gives the hook plain XLA
+    ``segment_min``, even on a TPU. Here None/"auto" gives the hook the flat
+    CUDA kernel on a CUDA graph (the plain version elsewhere). Every edge
+    that is not outgoing carries the identity key and is scattered into its
+    root's slot; the plain ``scatter_reduce_`` serialises on those atomics,
+    while the kernel skips identity keys. The reduction is the same, so the
+    results are identical.
+    """
+    if not use_pack:
+        return None, None
+    from repro_torch.kernels.ops import dedupe_segmin_backend
+
+    return (
+        resolve_flat_segmin(segmin, True, device_type),
+        dedupe_segmin_backend(segmin, device_type),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -67,8 +67,8 @@ def test_plain_version_is_what_cpu_runs():
     assert ops.flat_segmin_backend("cuda") == "cuda"
     with pytest.raises(ValueError):
         ops.make_packed_segmin("pallas")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-        ops.make_packed_segmin("sorted")
+    assert ops.make_packed_segmin("sorted") is ops.segment_min_sorted
+    assert ops.make_packed_segmin("sorted", "cpu") is ops.segment_min_sorted
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -95,7 +95,7 @@ def test_launcher_never_falls_back_to_cpu():
     s = torch.zeros(8, dtype=torch.int32)
     out = torch.empty(4, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        ops._launch_segment_min_flat(k, s, out)
+        ops._launch_segment_min("segment_min_flat", k, s, out)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -109,8 +109,124 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_build_is_keyed_on_source_hash():
-    assert build.sources() == ["segment_min_flat"]
+    assert build.sources() == ["segment_min_flat", "segment_min_sorted"]
     lib = build.library_path("segment_min_flat")
     assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
     assert lib == build.library_path("segment_min_flat")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------------------
+# sorted-segment kernel module: the adversarial layouts of the Pallas
+# kernel's own tests (tests/test_kernels.py), through the port's wrapper
+# (plain version on CPU tensors) against the Pallas kernel in interpret mode
+# ---------------------------------------------------------------------------
+
+
+def _runs(n_seg, seed):
+    """Run-length layout: singletons, multi-block giants, empty-band jumps."""
+    rng = np.random.default_rng(seed)
+    runs, cur, total = [], 0, 0
+    while total < 1500 and cur < n_seg:
+        kind = rng.random()
+        ln = int(rng.integers(512, 1300)) if kind < 0.15 else (
+            1 if kind < 0.5 else int(rng.integers(1, 40)))
+        runs.append(np.full(ln, cur, np.int32))
+        total += ln
+        cur += int(rng.integers(1, 300)) if rng.random() < 0.2 else int(rng.integers(1, 4))
+    return np.minimum(np.concatenate(runs), n_seg - 1)
+
+
+def _sorted_layouts():
+    rng = np.random.default_rng(5)
+    srt = lambda lo, hi, e: np.sort(rng.integers(lo, hi, e)).astype(np.int32)  # noqa: E731
+    return [
+        ("one_segment", 1, np.zeros(1500, np.int32)),
+        ("last_segment_only", 64, np.full(1500, 63, np.int32)),
+        ("all_singletons_513", 513, np.arange(513, dtype=np.int32)),
+        ("all_singletons_2048", 2048, np.arange(2048, dtype=np.int32)),
+        ("run_spans_blocks", 384, np.concatenate(
+            [np.zeros(100), np.full(1500, 1), np.full(448, 2)]).astype(np.int32)),
+        ("straddle_5_blocks", 64, np.concatenate(
+            [np.zeros(150), np.full(5 * 512 + 137, 1), np.full(300, 2)]).astype(np.int32)),
+        ("empty_segments_gaps", 1024, srt(256, 300, 600)),
+        ("two_bands_empty_row_blocks", 2048, np.sort(np.concatenate(
+            [rng.integers(0, 8, 200), rng.integers(1500, 1530, 200)])).astype(np.int32)),
+        ("empty_input", 256, np.zeros(0, np.int32)),
+        ("tail_1", 1, np.zeros(1, np.int32)),
+        ("tail_129x37", 37, srt(0, 37, 129)),
+        ("tail_1023x129", 129, srt(0, 129, 1023)),
+        ("tail_1025x127", 127, srt(0, 127, 1025)),
+        ("runs_fuzz", 700, _runs(700, 2024)),
+        ("one_run_90pct", 300, np.sort(np.where(
+            rng.random(2000) < 0.9, 17, rng.integers(0, 300, 2000))).astype(np.int32)),
+    ]
+
+
+_SORTED_LAYOUTS = _sorted_layouts()
+
+
+@pytest.mark.parametrize("n_seg,seg", [c[1:] for c in _SORTED_LAYOUTS],
+                         ids=[c[0] for c in _SORTED_LAYOUTS])
+def test_segment_min_sorted_matches_pallas(n_seg, seg):
+    rng = np.random.default_rng(len(seg) * 7 + n_seg)
+    keys = rng.integers(0, 1 << 32, len(seg), dtype=np.uint64).astype(np.uint32)
+    keys[rng.random(len(seg)) < 0.1] = UMAX  # a share of identity keys
+    k, s = torch.from_numpy(keys.astype(np.int64)), torch.from_numpy(seg)
+    ops.segment_min_sorted.launches = 0
+    got = ops.segment_min_sorted(k, s, n_seg).numpy()
+    assert got.dtype == np.int64 and got.shape == (n_seg,)
+    pallas = np.asarray(jax_ops.segment_min_sorted(jnp.array(keys), jnp.array(seg),
+                                                   num_segments=n_seg))
+    np.testing.assert_array_equal(got, pallas.astype(np.int64))
+    np.testing.assert_array_equal(ref.segment_min_sorted_ref(k, s, n_seg).numpy(), got)
+    oracle = np.asarray(jax_ref.segment_min_sorted_ref(jnp.array(keys), jnp.array(seg), n_seg))
+    np.testing.assert_array_equal(got, oracle.astype(np.int64))
+    assert ops.segment_min_sorted.launches == 0  # the CPU path launches nothing
+
+
+def test_dedupe_segmin_backend_resolution():
+    for req in ("sorted", "cuda"):
+        for dev in ("cpu", "cuda"):
+            assert ops.dedupe_segmin_backend(req, dev) is ops.segment_min_sorted
+    assert ops.dedupe_segmin_backend("torch", "cuda") is ref.segment_min_sorted_ref
+    for req in (None, "auto"):
+        assert ops.dedupe_segmin_backend(req, "cuda") is ops.segment_min_sorted
+        assert ops.dedupe_segmin_backend(req, "cpu") is ref.segment_min_sorted_ref
+    with pytest.raises(ValueError):
+        ops.dedupe_segmin_backend("pallas")
+
+
+def test_sorted_wrapper_rejects_bad_inputs():
+    k = torch.zeros(8, dtype=torch.int64)
+    s = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int64"):
+        ops.segment_min_sorted(k.to(torch.int32), s, 4)
+    with pytest.raises(ValueError, match="1-D"):
+        ops.segment_min_sorted(k, s[:4], 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.segment_min_sorted(k, torch.zeros(16, dtype=torch.int32)[::2], 4)
+    with pytest.raises(ValueError, match="num_segments"):
+        ops.segment_min_sorted(k, s, 1 << 31)
+
+
+def test_sorted_launcher_never_falls_back_to_cpu():
+    k = torch.zeros(8, dtype=torch.int64)
+    s = torch.zeros(8, dtype=torch.int32)
+    out = torch.empty(4, dtype=torch.int64)
+    before = ops.segment_min_sorted.launches
+    with pytest.raises(RuntimeError, match="segment_min_sorted's CUDA kernel"):
+        ops._launch_segment_min("segment_min_sorted", k, s, out)
+    assert ops.segment_min_sorted.launches == before
+
+
+def test_sorted_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    ops._segment_min_lib.cache_clear()
+    build.load.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops._segment_min_lib("segment_min_sorted")
+    assert not (tmp_path / "build").exists()
