@@ -13,6 +13,11 @@ Phases:
      many tiles, empty segments and gaps, E = 0, odd tails), one run
      holding 90% of the edges, and the dedupe inputs of level 0 of both
      coarsen graphs (recorded from a replay of the levels);
+     multilinear_dense at n in {1, 31, 33, 257, 4096, 4097} with empty
+     rows, all-equal weights, NaN and -inf entries, p all equal and all
+     distinct; segment_min_bucketed on the E = 0 layout, rows out of range
+     on both sides, one row holding a whole bucket, block_rows in
+     {8, 128, 1024};
   4. the property-suite graph classes solved on the card and on the CPU
      (flat: complete/csp/os x pack on/off; coarsen with a small cutoff):
      every SolveReport field identical;
@@ -29,10 +34,26 @@ Phases:
      scipy; eid set and partition equal to the flat solve's; the report equal
      to the plain solve's (segmin="torch", dedupe="host");
   6c. the same on the 1024 x 1024 grid;
+  6d. the kernel entry points at real size: multilinear_dense on the dense
+     adjacency of R-MAT scale 14, edge factor 8, seed 1 and of scale 12,
+     edge factor 64, seed 1 (the Fig-8 graphs of
+     benchmarks/bench_multilinear.py), with p = arange(n) and with p after
+     one flat AS round, against its plain version and min_outgoing_dense;
+     segment_min_bucketed on bucket_edges_by_row_block(src, pack32(w, eid),
+     n) of the 1024 x 1024 grid and of R-MAT scale 14 (the first AS round's
+     per-vertex minimum), against its plain version and segment_min_flat;
+     one launch per call;
+  6e. connected_components and sssp (from vertex 0) on R-MAT scale 20 and
+     the grid: component count against scipy, partition against the flat
+     solve's, distances exactly against scipy's Dijkstra; rounds, host
+     syncs and median solve times, and sssp with each relaxation form
+     forced (every candidate scattered, as the reference does, or only
+     the improving ones), in turns;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT flat solve;
-     segment_min_sorted: every level's dedupe of both coarsen graphs),
+     segment_min_sorted: every level's dedupe of both coarsen graphs;
+     multilinear_dense and segment_min_bucketed: the inputs of 6d),
      beside its plain version, the one PyTorch library call and its memory
      bound; end-to-end solve times (flat: kernel vs segmin="torch";
      coarsen vs flat), host syncs per solve, and torch.profiler
@@ -62,6 +83,10 @@ RMAT = dict(scale=20, edge_factor=8, seed=0)
 # they need 2 * next_pow2(m) < 2^24 - 1 (m = undirected edges).
 RMAT_COARSEN = dict(scale=19, edge_factor=8, seed=0)
 GRID = (1024, 1024)
+# The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
+# dense n x n float32 adjacency (1 GiB and 64 MiB).
+DENSE_GRAPHS = {"rmat_s14_ef8": dict(scale=14, edge_factor=8, seed=1),
+                "rmat_s12_ef64": dict(scale=12, edge_factor=64, seed=1)}
 # (name, n, m, weight levels, multigraph, seed): the fixed-seed classes
 # of tests/test_msf_properties.py, drawn the same way.
 FIXED_CASES = [
@@ -152,23 +177,38 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_rows(fn, reps: int = 1, attempts: int = 5) -> list:
+    """torch.profiler's device-side rows (kernels, copies) over ``reps``
+    calls of ``fn``, each with a non-zero self time. The profiler now and
+    then records no device event for a run, which would read as a 0.0 ms
+    kernel: such a run is profiled again, and after ``attempts`` the script
+    fails rather than report a time it did not measure."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if sum(e.count for e in rows) >= reps:  # at least one device event per call
+            return rows
+    fail(f"torch.profiler recorded no device time for {reps} call(s) of {fn!r:.100} "
+         f"in {attempts} attempts")
+
+
 def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Device time of one call of ``fn``: the self time of every kernel and
     copy it ran, summed by torch.profiler over ``reps`` calls. Unlike
     :func:`time_ms` it leaves out the host's time to enqueue the call,
     which bounds a small launch."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = device_rows(fn, reps)
     return sum(e.self_device_time_total for e in rows) / 1e3 / reps
 
 
@@ -290,6 +330,376 @@ def record_dedupe_inputs(g) -> list:
 
     run_levels(g, CoarsenConfig(), segmins=(ops.segment_min_flat, record))
     return inputs
+
+
+def triple_err(got, want) -> float:
+    """Largest absolute difference between two (minw, mincol, minpay)
+    triples; equal entries (+inf included) count 0, an inf against a
+    finite value counts inf."""
+    import torch
+
+    w_g, w_w = got[0].double(), want[0].double()
+    same = (w_g == w_w) | (w_g.isnan() & w_w.isnan())
+    errs = [float(torch.where(same, 0.0, (w_g - w_w).abs().nan_to_num(float("inf"))).max())]
+    errs += [float((g.long() - w.long()).abs().max()) for g, w in zip(got[1:], want[1:])]
+    return max(errs) if got[0].numel() else 0.0
+
+
+def dense_kernel_cases(dev) -> float:
+    """Phase 3: multilinear_dense against its plain version, exactly, at n
+    not a multiple of 4 or 32 (the 4-byte load path) and at n = 4096 (the
+    16-byte load path). Never +0.0 and -0.0 tied for a row's minimum: the
+    kernel's minw takes the winning column's sign, torch.amin either."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    inf = float("inf")
+    max_err = 0.0
+    for n in (1, 31, 33, 257, 4096, 4097):
+        def rand(lo, hi):
+            return torch.randint(lo, hi, (n, n), generator=gen, device=dev).to(torch.float32)
+
+        def mask(share):
+            return torch.rand(n, n, generator=gen, device=dev) < share
+
+        sparse = torch.where(mask(0.7), inf, rand(1, 256))
+        sparse[: max(1, n // 8)] = inf  # rows with no entry
+        special = rand(1, 9)
+        special[mask(0.2)] = float("nan")
+        special[mask(0.02)] = -inf
+        cases = [
+            ("random, empty rows", sparse),
+            ("all-equal weights (ties to the smallest column)",
+             torch.full((n, n), 7.0, device=dev)),
+            ("NaN and -inf entries", special),
+            ("negative weights", rand(-5, 5)),  # integer values: no -0.0
+        ]
+        ps = [("p random", torch.randint(0, max(1, n // 5), (n,), generator=gen, device=dev,
+                                         dtype=torch.int32)),
+              ("p all equal", torch.zeros(n, dtype=torch.int32, device=dev)),
+              ("p all distinct", torch.arange(n, dtype=torch.int32, device=dev))]
+        for label, a in cases:
+            for plabel, pv in ps:
+                got = ops.multilinear_dense(pv, a)
+                want = ref.multilinear_dense_ref(pv, a)
+                torch.cuda.synchronize()
+                err = triple_err(got, want)
+                max_err = max(max_err, err)
+                check(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+                      f"multilinear_dense != plain version (n={n}, {label}, {plabel}), "
+                      f"max err {err}")
+        print(f"  multilinear_dense n={n}: {len(cases)} inputs x {len(ps)} p: exact", flush=True)
+    return max_err
+
+
+def bucketed_kernel_cases(dev) -> int:
+    """Phase 3: segment_min_bucketed against its plain version, exactly."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ident = ref.PACK_IDENTITY
+    max_err = 0
+    for br in (8, 128, 1024):
+        n, e = 300_000, 2_000_000
+        seg = torch.randint(0, n, (e,), generator=gen, device=dev)
+        keys = torch.randint(0, ident, (e,), generator=gen, device=dev, dtype=torch.int64)
+        keys[torch.rand(e, generator=gen, device=dev) < 0.1] = ident
+        kb, rb = ops.bucket_edges_by_row_block(seg, keys, n, br)
+        wild = torch.randint(-3 * br, 3 * br, rb.shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+        one_row = rb.clone()
+        one_row[1] = br // 2  # one row holds a whole bucket
+        ke, re_ = ops.bucket_edges_by_row_block(seg[:0], keys[:0], n, br)
+        cases = [
+            ("uniform", kb, rb),
+            ("rows out of range, negative and >= block_rows", kb, torch.where(
+                torch.rand(rb.shape, generator=gen, device=dev) < 0.3, wild, rb)),
+            ("one row holds a whole bucket", kb, one_row),
+            ("E = 0 layout", ke, re_),
+        ]
+        for label, k, r in cases:
+            got = ops.segment_min_bucketed(k, r, block_rows=br)
+            want = ref.segment_min_bucketed_ref(k, r, br)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            max_err = max(max_err, err)
+            check(torch.equal(got, want),
+                  f"segment_min_bucketed != plain version (block_rows={br}, {label}), "
+                  f"max err {err}")
+            print(f"  segment_min_bucketed block_rows={br} {label}: NB x BE = "
+                  f"{tuple(k.shape)} exact", flush=True)
+    return max_err
+
+
+def dense_adjacency(g):
+    """float32 [n, n]: the least weight of the edges from i to j, +inf where
+    there is none (a scatter-min of w over src * n + dst)."""
+    import torch
+
+    v = g.valid
+    idx = g.src[v].long() * g.n + g.dst[v].long()
+    a = torch.full((g.n * g.n,), float("inf"), dtype=torch.float32, device=g.device)
+    a.scatter_reduce_(0, idx, g.w[v], "amin", include_self=True)
+    return a.view(g.n, g.n)
+
+
+def vertex_min_keys(g):
+    """(seg, keys): the first AS round's per-vertex minimum, segment = src,
+    key = pack32(w, eid) of every valid directed edge."""
+    import torch
+
+    from repro_torch.core.semiring import pack32
+
+    v = g.valid
+    return g.src[v], pack32(g.w[v].to(torch.int64), g.eid[v])
+
+
+def entry_points(dense_graphs, bucket_graphs):
+    """Phase 6d: drive the two kernels' entry points at real size, then
+    check what they returned. Returns (launches, inputs for phase 7,
+    max errors)."""
+    import torch
+
+    from repro_torch.core.msf import run_flat
+    from repro_torch.core.multilinear import min_outgoing_dense
+    from repro_torch.kernels import ops, ref
+
+    dense_in = {}
+    for label, g in dense_graphs.items():
+        a = dense_adjacency(g)
+        dense_in[label] = {"a": a, "g": g}
+    bucket_in = {}
+    for label, g in bucket_graphs.items():
+        seg, keys = vertex_min_keys(g)
+        kb, rb = ops.bucket_edges_by_row_block(seg, keys, g.n)
+        bucket_in[label] = {"seg": seg, "keys": keys, "kb": kb, "rb": rb, "n": g.n}
+    torch.cuda.synchronize()
+
+    # The path: the counts are 0 just before it and read just after.
+    ops.multilinear_dense.launches = ops.segment_min_bucketed.launches = 0
+    ops.segment_min_flat.launches = 0
+    calls = {"multilinear_dense": 0, "segment_min_bucketed": 0}
+    for label, d in dense_in.items():
+        g = d["g"]
+        one_round = run_flat(g, max_iters=1, pack=True, segmin=ops.segment_min_flat)
+        d["p"] = {"p = arange(n)": torch.arange(g.n, dtype=torch.int32, device=g.device),
+                  "p after one AS round": one_round.parent}
+        d["out"] = {k: ops.multilinear_dense(pv, d["a"]) for k, pv in d["p"].items()}
+        calls["multilinear_dense"] += len(d["p"])
+    for label, b in bucket_in.items():
+        b["out"] = ops.segment_min_bucketed(b["kb"], b["rb"])
+        calls["segment_min_bucketed"] += 1
+    torch.cuda.synchronize()
+    launches = {"multilinear_dense": ops.multilinear_dense.launches,
+                "segment_min_bucketed": ops.segment_min_bucketed.launches,
+                "segment_min_flat": ops.segment_min_flat.launches}
+    for name, c in calls.items():
+        check(launches[name] == c, f"{name}: {launches[name]} launches for {c} calls")
+    check(launches["segment_min_flat"] == len(dense_in),
+          f"segment_min_flat: {launches['segment_min_flat']} launches for "
+          f"{len(dense_in)} one-round solves")
+
+    err = {"multilinear_dense": 0.0, "segment_min_bucketed": 0}
+    for label, d in dense_in.items():
+        g, a = d["g"], d["a"]
+        for plabel, pv in d["p"].items():
+            got = d["out"][plabel]
+            want = ref.multilinear_dense_ref(pv, a)
+            em = min_outgoing_dense(pv, a)
+            torch.cuda.synchronize()
+            e = triple_err(got, want)
+            err["multilinear_dense"] = max(err["multilinear_dense"], e)
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"{label} {plabel}: multilinear_dense != plain version, max err {e}")
+            check(all(torch.equal(x, y) for x, y in zip(got, (em.w, em.eid, em.payload[0]))),
+                  f"{label} {plabel}: multilinear_dense != min_outgoing_dense")
+            hooked = int((got[0] < float("inf")).sum())
+            print(f"  multilinear_dense {label} {plabel}: n={g.n} E={g.num_directed_edges} "
+                  f"rows with an outgoing edge {hooked}; == plain, == min_outgoing_dense",
+                  flush=True)
+    for label, b in bucket_in.items():
+        n, kb = b["n"], b["kb"]
+        got = b["out"]
+        want = ref.segment_min_bucketed_ref(kb, b["rb"], 128)
+        flat = ops.segment_min_flat(b["keys"], b["seg"], n)
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        err["segment_min_bucketed"] = max(err["segment_min_bucketed"], e)
+        check(torch.equal(got, want), f"{label}: segment_min_bucketed != plain, max err {e}")
+        check(torch.equal(got[:n], flat) and bool((got[n:] == ref.PACK_IDENTITY).all()),
+              f"{label}: segment_min_bucketed != segment_min_flat on the same keys")
+        nb, be = kb.shape
+        e_real = b["keys"].numel()
+        b["fill"] = e_real / (nb * be)
+        print(f"  segment_min_bucketed {label}: E={e_real} NB={nb} BE={be} "
+              f"fill={b['fill']:.4f} layout_bytes={nb * be * 12}; == plain, "
+              f"== segment_min_flat", flush=True)
+    for b in bucket_in.values():
+        del b["out"]
+    for d in dense_in.values():
+        del d["out"]
+    return launches, dense_in, bucket_in, err
+
+
+def cc_sssp(label, g, flat_rep) -> dict:
+    """Phase 6e: connected_components and sssp from vertex 0 on ``g``,
+    checked against scipy and the flat solve; rounds, host syncs, median
+    solve times, and sssp with each relaxation form forced (every
+    candidate scattered, or only the improving ones), in turns."""
+    from unittest import mock
+
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csg
+    import torch
+
+    from repro_torch.coarsen.relabel import canonical_minvertex_labels
+    from repro_torch.core import connected_components
+    from repro_torch.core import sssp as sssp_mod
+    from repro_torch.graphs.structures import nx_free_n_components
+
+    t0 = time.perf_counter()
+    cc = connected_components(g)
+    torch.cuda.synchronize()
+    cc_first = time.perf_counter() - t0
+    ncomp = nx_free_n_components(g)
+    check(int(cc.n_components) == ncomp,
+          f"{label}: {int(cc.n_components)} components != scipy {ncomp}")
+    same = torch.equal(canonical_minvertex_labels(cc.parent, g.n).cpu(),
+                       canonical_minvertex_labels(flat_rep.parent, g.n))
+    check(same, f"{label}: connected_components partition differs from the flat MSF's")
+
+    t0 = time.perf_counter()
+    d, it = sssp_mod.sssp(g, 0)
+    torch.cuda.synchronize()
+    sssp_first = time.perf_counter() - t0
+    valid = g.valid.cpu().numpy()
+    src, dst, w = (x.cpu().numpy()[valid] for x in (g.src, g.dst, g.w))
+    a = sp.coo_matrix((w.astype(np.float64), (src, dst)), shape=(g.n, g.n)).tocsr()
+    want = csg.dijkstra(a, directed=True, indices=0)
+    got = d.cpu().numpy().astype(np.float64)
+    if not np.array_equal(got, want):
+        fail(f"{label}: sssp != scipy Dijkstra at {int((got != want).sum())} vertices")
+    hub = int(torch.bincount(g.dst[g.valid].long(), minlength=g.n).max())
+    form = "improving" if hub > sssp_mod.HUB_IN_DEGREE else "all"
+
+    def sssp_scattering(which):
+        # each form forced through the threshold, the default left as it is
+        limit = {"improving": -1, "all": g.num_directed_edges}[which]
+        with mock.patch.object(sssp_mod, "HUB_IN_DEGREE", limit):
+            return sssp_mod.sssp(g, 0)
+
+    for which in ("improving", "all"):
+        d_f, it_f = sssp_scattering(which)
+        check(torch.equal(d_f, d) and it_f == it, f"{label}: sssp scattering {which} differs")
+
+    def timed(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out)
+
+    forms = {"improving": [], "all": []}
+    for i in range(3):  # in turns: improving, all, all, improving, ...
+        for which in (("improving", "all") if i % 2 == 0 else ("all", "improving")):
+            forms[which].append(timed(partial(sssp_scattering, which), reps=1))
+    row = {
+        "cc_rounds": int(cc.iterations),
+        "components": ncomp,
+        "cc_first_s": cc_first,
+        "cc_s": timed(lambda: connected_components(g)),
+        "cc_host_syncs": count_syncs(lambda: connected_components(g)),
+        "sssp_rounds": it,
+        "sssp_reached": int(np.isfinite(got).sum()),
+        "sssp_first_s": sssp_first,
+        "sssp_largest_in_degree": hub,
+        "sssp_scatters": form,
+        "sssp_s": timed(lambda: sssp_mod.sssp(g, 0)),
+        "sssp_scattering_improving_s": statistics.median(forms["improving"]),
+        "sssp_scattering_all_s": statistics.median(forms["all"]),
+        "sssp_host_syncs": count_syncs(lambda: sssp_mod.sssp(g, 0)),
+    }
+    print(f"  {label}: components={ncomp} (scipy) cc_rounds={row['cc_rounds']} "
+          f"partition == flat MSF; sssp_rounds={it} reached={row['sssp_reached']} "
+          f"== scipy Dijkstra; {json.dumps(row)}", flush=True)
+    return row
+
+
+def dense_times(dense_in) -> list:
+    """multilinear_dense and its plain version timed on the entry-point
+    inputs, beside the bound: the adjacency read once (n^2 * 4 B), p read
+    and the three outputs written once (16 B per row)."""
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for label, d in dense_in.items():
+        a = d["a"]
+        n = a.shape[0]
+        bytes_ = n * n * 4 + n * 16
+        for plabel, pv in d["p"].items():
+            kernel = partial(ops.multilinear_dense, pv, a)
+            rows.append({
+                "input": f"{label}, {plabel}",
+                "n": n,
+                "kernel_ms": device_ms(kernel),
+                "kernel_call_ms": time_ms(kernel),
+                "plain_ms": device_ms(partial(ref.multilinear_dense_ref, pv, a), reps=3),
+                "library_ms": None,
+                "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
+                "bytes": bytes_,
+            })
+    return rows
+
+
+def bucketed_times(bucket_in) -> list:
+    """segment_min_bucketed, its plain version and one scatter_reduce_ amin
+    over the flattened ids b * 128 + rows, timed on the entry-point layouts,
+    beside the bound: every entry's key read once, padding included (8 B);
+    the row read once only where the key is not the identity (4 B), since an
+    identity key leaves the result as it is whatever its row; the output
+    written once (8 B per row)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for label, b in bucket_in.items():
+        kb, rb = b["kb"], b["rb"]
+        nb, be = kb.shape
+        idx = (torch.arange(nb, device=kb.device)[:, None] * 128 + rb.long()).reshape(-1)
+        flat_keys = kb.reshape(-1)
+        out = torch.full((nb * 128,), ref.PACK_IDENTITY, dtype=torch.int64, device=kb.device)
+        live = int((kb != ref.PACK_IDENTITY).sum())
+        bytes_ = nb * be * 8 + live * 4 + nb * 128 * 8
+        kernel = partial(ops.segment_min_bucketed, kb, rb)
+        # The same layout with every entry's row spread over the block
+        # (e % 128): the same bytes, no row holding more than its share.
+        spread = (torch.arange(be, device=kb.device, dtype=torch.int32) % 128).expand(nb, be)
+        rows.append({
+            "input": label,
+            "NB": nb,
+            "BE": be,
+            "fill": b["fill"],
+            "kernel_ms": device_ms(kernel),
+            "kernel_call_ms": time_ms(kernel),
+            "kernel_rows_spread_ms": device_ms(partial(ops.segment_min_bucketed, kb,
+                                                       spread.contiguous())),
+            "plain_ms": device_ms(partial(ref.segment_min_bucketed_ref, kb, rb, 128)),
+            "library_ms": device_ms(partial(out.scatter_reduce_, 0, idx, flat_keys, "amin",
+                                            include_self=True)),
+            "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
+            "bytes": bytes_,
+            "live_entries": live,
+        })
+    return rows
 
 
 def small_graphs():
@@ -557,19 +967,10 @@ def count_syncs(fn) -> int:
 def profile_solve(g, spec=None, top: int = 8) -> dict:
     """One solve (default: ``SolveSpec()``) under torch.profiler: device
     time by kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.solve import SolveSpec, plan
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        plan(g, spec or SolveSpec()).solve()
-        torch.cuda.synchronize()
     # Device-side rows only (kernels, copies): an op row repeats its kernels' time.
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = device_rows(lambda: plan(g, spec or SolveSpec()).solve())
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     return {
         "device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
@@ -614,6 +1015,8 @@ def main():
                  "grid_1024x1024": record_dedupe_inputs(g_grid)}
     level0 = [(f"level-0 dedupe of {label}", *ins[0]) for label, ins in dedupe_in.items()]
     max_err_sorted = sorted_kernel_cases("cuda", level0)
+    max_err_dense = dense_kernel_cases("cuda")
+    max_err_bucketed = bucketed_kernel_cases("cuda")
 
     phase("4 small graphs, card vs CPU")
     small_graphs()
@@ -630,9 +1033,24 @@ def main():
     from repro_torch.solve import SolveSpec, plan
 
     coarsen_launches = {}
+    flat_reps = {"rmat_s20_ef8": plan(g_rmat, SolveSpec()).solve(),
+                 "grid_1024x1024": plan(g_grid, SolveSpec()).solve()}
     for ph, label, g in (("6b", "rmat_s19_ef8", g_rmat19), ("6c", "grid_1024x1024", g_grid)):
         phase(f"{ph} coarsen path: {label}")
-        coarsen_launches[label], _ = coarsen_path(label, g, plan(g, SolveSpec()).solve())
+        flat_rep = flat_reps[label] if label in flat_reps else plan(g, SolveSpec()).solve()
+        coarsen_launches[label], _ = coarsen_path(label, g, flat_rep)
+
+    phase("6d kernel entry points at real size")
+    t0 = time.perf_counter()
+    dense_graphs = {k: rmat_graph(**v, device="cuda") for k, v in DENSE_GRAPHS.items()}
+    print(f"  graphs generated in {time.perf_counter() - t0:.1f} s (host)", flush=True)
+    entry_launches, dense_in, bucket_in, entry_err = entry_points(
+        dense_graphs, {"grid_1024x1024": g_grid, "rmat_s14_ef8": dense_graphs["rmat_s14_ef8"]})
+    print(f"  launches on the entry-point path: {json.dumps(entry_launches)}", flush=True)
+
+    phase("6e connectivity and SSSP")
+    cc_rows = {label: cc_sssp(label, g, flat_reps[label])
+               for label, g in (("rmat_s20_ef8", g_rmat), ("grid_1024x1024", g_grid))}
 
     phase("7 times")
     per_round = round_times(g_rmat)
@@ -669,6 +1087,17 @@ def main():
             "profile_coarsen": profile_solve(g, coarsen_spec),
         }
     print(json.dumps({"coarsen_vs_flat_seconds_median_of_3": coarsen, "card": smi}))
+    print(json.dumps({"connectivity_and_sssp": cc_rows, "card": smi}))
+    dense_rows = dense_times(dense_in)
+    del dense_in
+    print(json.dumps({"multilinear_dense_entry_points": dense_rows, "card": smi}))
+    bucket_rows = bucketed_times(bucket_in)
+    print(json.dumps({"segment_min_bucketed_entry_points": bucket_rows, "card": smi}))
+    mean_dense = {k: statistics.fmean(r[k] for r in dense_rows) for k in fields
+                  if k != "library_ms"}
+    mean_bucketed = {k: statistics.fmean(r[k] for r in bucket_rows) for k in fields}
+    entry_note = ("ms, plain_ms, library_ms: device time (torch.profiler); call_ms: CUDA "
+                  "events around back-to-back calls, the wrapper's host time included")
     print(json.dumps({"kernels": [{
         "name": "segment_min_flat",
         "route": "cuda",
@@ -677,7 +1106,9 @@ def main():
         "launches": launches,
         "launches_by_path": {
             "flat rmat_s20_ef8": launches, "flat grid_1024x1024": launches_grid,
-            **{f"coarsen {k}": v["segment_min_flat"] for k, v in coarsen_launches.items()}},
+            **{f"coarsen {k}": v["segment_min_flat"] for k, v in coarsen_launches.items()},
+            "entry points (one AS round for the dense kernel's p)":
+                entry_launches["segment_min_flat"]},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
@@ -708,6 +1139,43 @@ def main():
         "timed_on": "each level's dedupe inputs of both coarsen main paths, mean per launch; "
                     "ms, plain_ms, library_ms: device time (torch.profiler); call_ms: CUDA "
                     "events around back-to-back calls, the wrapper's host time included",
+    }, {
+        "name": "multilinear_dense",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/multilinear_dense.cu",
+        "replaces": "src/repro/kernels/multilinear_dense.py:68",
+        "launches": entry_launches["multilinear_dense"],
+        "launches_by_path": {"entry points": entry_launches["multilinear_dense"]},
+        "matches_plain": True,
+        "max_abs_err": max(max_err_dense, entry_err["multilinear_dense"]),
+        "ms": mean_dense["kernel_ms"],
+        "call_ms": mean_dense["kernel_call_ms"],
+        "plain_ms": mean_dense["plain_ms"],
+        "bound_ms": mean_dense["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a masked lexicographic argmin "
+                        "with payload",
+        "timed_on": "the dense adjacencies of R-MAT s14 ef8 and s12 ef64 (seed 1), p = "
+                    "arange(n) and p after one AS round, mean per launch; " + entry_note,
+    }, {
+        "name": "segment_min_bucketed",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_min_bucketed.cu",
+        "replaces": "src/repro/kernels/segment_min_bucketed.py:62",
+        "launches": entry_launches["segment_min_bucketed"],
+        "launches_by_path": {"entry points": entry_launches["segment_min_bucketed"]},
+        "matches_plain": True,
+        "max_abs_err": max(max_err_bucketed, entry_err["segment_min_bucketed"]),
+        "ms": mean_bucketed["kernel_ms"],
+        "call_ms": mean_bucketed["kernel_call_ms"],
+        "plain_ms": mean_bucketed["plain_ms"],
+        "bound_ms": mean_bucketed["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": mean_bucketed["library_ms"],
+        "timed_on": "the bucketed layouts of the grid 1024 x 1024 and R-MAT s14 ef8 (segment "
+                    "= source vertex), mean per launch; library: scatter_reduce_ amin over "
+                    "b * 128 + rows; " + entry_note,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

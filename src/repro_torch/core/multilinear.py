@@ -2,10 +2,13 @@
 
 ``w_i ← ⊕_j f(x_i, a_ij, y_j)`` computed all-at-once over the edge list,
 with the MSF instantiation ``f(p_i, a_ij, p_j) = (a_ij, p_j) if p_i ≠ p_j
-else identity`` over the MINWEIGHT monoid. The 2-D distributed schedule
-and the generic GNN entry points are not ported yet.
+else identity`` over the MINWEIGHT monoid, and the generic form
+``multilinear_coo`` with ⊕ in {sum, min, max}. The 2-D distributed
+schedule is not ported yet.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -111,3 +114,49 @@ def min_outgoing_dense(
     eid = torch.where(w < INF, col[None, :], IMAX)
     pd = torch.where(w < INF, p[None, :].to(torch.int32), IMAX)
     return axis_argmin(w, eid, (pd,), axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Generic multilinear (GNN substrate reuse)
+# ---------------------------------------------------------------------------
+
+
+def _reduce_identity(dtype: torch.dtype, reduce: str):
+    if dtype.is_floating_point:
+        return float("inf") if reduce == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if reduce == "min" else info.min
+
+
+def multilinear_coo(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    a: torch.Tensor | None,
+    f: Callable,
+    *,
+    num_segments: int,
+    reduce: str = "sum",
+) -> torch.Tensor:
+    """w_i = ⊕_{(i,j) ∈ E} f(x_i, a_ij, y_j) with ⊕ in {sum, min, max}.
+
+    ``x``/``y`` may be [n] or [n, d]; ``f`` is applied vectorized over the
+    edge dimension. Empty segments hold the monoid identity: 0 for sum,
+    the dtype's largest value (+inf for floats) for min, its smallest for
+    max. Sum is ``index_add_``, whose float order differs from the
+    reference's; min and max are ``scatter_reduce_`` onto the identity.
+    """
+    if reduce not in ("sum", "min", "max"):
+        raise ValueError(f"reduce must be one of sum, min, max; got {reduce!r}")
+    vals = f(x[src], a, y[dst])
+    seg = src.long()
+    shape = (num_segments, *vals.shape[1:])
+    if reduce == "sum":
+        out = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
+        return out.index_add_(0, seg, vals)
+    out = torch.full(shape, _reduce_identity(vals.dtype, reduce), dtype=vals.dtype,
+                     device=vals.device)
+    idx = seg.view(-1, *([1] * (vals.dim() - 1))).expand_as(vals)
+    return out.scatter_reduce_(0, idx, vals, "amin" if reduce == "min" else "amax",
+                               include_self=True)

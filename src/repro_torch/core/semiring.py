@@ -127,3 +127,9 @@ def unpack32(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def packable(n: int, max_w: int) -> bool:
     return n <= PACK_IDX_MASK + 1 and max_w <= PACK_MAX_W
+
+
+# Tropical semiring helper (used by the Bellman-Ford showcase, paper §II-B).
+def tropical_spmv(d: torch.Tensor, src, dst, w, num_segments: int) -> torch.Tensor:
+    """One Bellman-Ford relaxation: d'_j = min(d_j, min_i d_i + w_ij)."""
+    return torch.minimum(d, segment_min(d[src] + w, dst, num_segments, INF))

@@ -5,7 +5,8 @@ on the CPU it runs the kernel's plain version (``kernels.ref``); on a
 CUDA device it launches the hand-written kernel or raises. There is no
 fallback from a failed build or launch. Each wrapper counts its kernel
 launches in a plain integer attribute (``segment_min_flat.launches``,
-``segment_min_sorted.launches``).
+``segment_min_sorted.launches``, ``segment_min_bucketed.launches``,
+``multilinear_dense.launches``).
 """
 from __future__ import annotations
 
@@ -14,23 +15,38 @@ from functools import lru_cache
 
 import torch
 
+from repro_torch.core.semiring import PACK_IDENTITY
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import segment_min_flat_ref, segment_min_sorted_ref
+from repro_torch.kernels.ref import (
+    multilinear_dense_ref,
+    segment_min_bucketed_ref,
+    segment_min_flat_ref,
+    segment_min_sorted_ref,
+)
 
 _INT32_MAX = int(torch.iinfo(torch.int32).max)
 
+_PTR, _I64 = ctypes.c_void_p, ctypes.c_longlong
+# The arguments of each kernel's C entry point ``<name>_launch``, in order,
+# before the trailing stream: tensors pass as device pointers, ints as 64 bits.
+_LAUNCH_ARGS = {
+    "segment_min_flat": (_PTR, _PTR, _PTR, _I64, _I64),  # keys, segs, out, E, S
+    "segment_min_sorted": (_PTR, _PTR, _PTR, _I64, _I64),  # keys, segs, out, E, S
+    # p, a, n, minw, mincol, minpay
+    "multilinear_dense": (_PTR, _PTR, _I64, _PTR, _PTR, _PTR),
+    # keys, rows, out, nb, be, block_rows
+    "segment_min_bucketed": (_PTR, _PTR, _PTR, _I64, _I64, _I64),
+}
+
 
 @lru_cache(maxsize=None)
-def _segment_min_lib(name: str) -> ctypes.CDLL:
+def _kernel_lib(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, whose C entry points are
-    ``<name>_launch(keys, segs, out, num_edges, num_segments, stream)`` and
+    ``<name>_launch(*_LAUNCH_ARGS[name], stream)`` and
     ``<name>_error_string(code)``."""
     lib = build.load(name)
     launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ]
+    launch.argtypes = [*_LAUNCH_ARGS[name], _PTR]
     launch.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -38,22 +54,24 @@ def _segment_min_lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _launch_segment_min(name: str, keys: torch.Tensor, segs: torch.Tensor,
-                        out: torch.Tensor) -> None:
-    """Launch the CUDA kernel ``name`` into ``out`` on the current stream.
-    Every tensor must lie on one CUDA device; anything else raises."""
-    devs = {t.device for t in (keys, segs, out)}
+def _launch(name: str, *args) -> None:
+    """Launch the CUDA kernel ``name`` on the current stream with ``args``
+    in the order of ``_LAUNCH_ARGS[name]`` (tensors and ints). Every tensor
+    must lie on one CUDA device; anything else raises, and so does a
+    non-zero return, with the CUDA error string."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    devs = {t.device for t in tensors}
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise RuntimeError(
             f"{name}'s CUDA kernel needs tensors on one CUDA device, "
             f"got {sorted(str(d) for d in devs)}"
         )
-    lib = _segment_min_lib(name)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
+    dev = tensors[0].device
+    lib = _kernel_lib(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
-            keys.data_ptr(), segs.data_ptr(), out.data_ptr(),
-            keys.numel(), out.numel(), stream,
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream
         )
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
@@ -95,7 +113,7 @@ def segment_min_flat(keys: torch.Tensor, segs: torch.Tensor, num_segments: int) 
     if keys.device.type == "cpu":
         return segment_min_flat_ref(keys, segs, num_segments)
     out = torch.empty(num_segments, dtype=torch.int64, device=keys.device)
-    _launch_segment_min("segment_min_flat", keys, segs, out)
+    _launch("segment_min_flat", keys, segs, out, keys.numel(), num_segments)
     segment_min_flat.launches += 1
     return out
 
@@ -119,12 +137,115 @@ def segment_min_sorted(keys: torch.Tensor, segs: torch.Tensor, num_segments: int
     if keys.device.type == "cpu":
         return segment_min_sorted_ref(keys, segs, num_segments)
     out = torch.empty(num_segments, dtype=torch.int64, device=keys.device)
-    _launch_segment_min("segment_min_sorted", keys, segs, out)
+    _launch("segment_min_sorted", keys, segs, out, keys.numel(), num_segments)
     segment_min_sorted.launches += 1
     return out
 
 
 segment_min_sorted.launches = 0
+
+
+def _check_bucketed_args(keys, rows, block_rows) -> None:
+    """The reference's validation of the bucketed layout
+    (``repro.kernels.segment_min_bucketed``), on the port's dtypes."""
+    if not isinstance(keys, torch.Tensor) or not isinstance(rows, torch.Tensor):
+        raise TypeError("keys and rows must be torch tensors")
+    if keys.shape != rows.shape:
+        raise ValueError(f"keys/rows shape mismatch: {tuple(keys.shape)} vs {tuple(rows.shape)}")
+    if keys.dtype != torch.int64:
+        raise ValueError(f"keys must be int64 holding uint32 pack32 values, got {keys.dtype}")
+    if rows.dtype != torch.int32:
+        raise ValueError(f"rows must be int32, got {rows.dtype}")
+    if not isinstance(block_rows, int) or block_rows <= 0 or block_rows % 8:
+        raise ValueError(f"block_rows must be a positive multiple of 8, got {block_rows!r}")
+    if keys.dim() != 2:
+        raise ValueError(f"expected [NB, BE] bucketed layout, got {tuple(keys.shape)}")
+    nb, be = keys.shape
+    if nb == 0 or be == 0:
+        raise ValueError(
+            f"empty bucket layout {tuple(keys.shape)}; pad each bucket to >= 128 "
+            f"lanes (see bucket_edges_by_row_block)"
+        )
+    if be % 128:
+        raise ValueError(f"bucket edge dim {be} must be a multiple of 128 lanes")
+    if keys.device != rows.device:
+        raise ValueError(f"keys on {keys.device} but rows on {rows.device}")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {keys.device}")
+    if not (keys.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("keys and rows must be contiguous")
+
+
+def segment_min_bucketed(keys: torch.Tensor, rows: torch.Tensor, *,
+                         block_rows: int = 128) -> torch.Tensor:
+    """Packed segment-min over edges pre-grouped by output row block:
+    ``out[b * block_rows + r] = min{keys[b, e] : rows[b, e] == r}``.
+
+    keys int64 [NB, BE] (uint32 pack32 values, ``0xFFFFFFFF`` = identity
+    and padding), rows int32 [NB, BE] (local row in the bucket's block) →
+    int64 [NB * block_rows]; rows outside ``[0, block_rows)`` are dropped.
+    The layout comes from :func:`bucket_edges_by_row_block`. CPU tensors
+    run :func:`~repro_torch.kernels.ref.segment_min_bucketed_ref`; CUDA
+    tensors launch ``csrc/segment_min_bucketed.cu``, which raises when
+    ``block_rows * 8`` bytes exceed the card's shared memory per block.
+    """
+    _check_bucketed_args(keys, rows, block_rows)
+    if keys.device.type == "cpu":
+        return segment_min_bucketed_ref(keys, rows, block_rows)
+    nb, be = keys.shape
+    out = torch.empty(nb * block_rows, dtype=torch.int64, device=keys.device)
+    _launch("segment_min_bucketed", keys, rows, out, nb, be, block_rows)
+    segment_min_bucketed.launches += 1
+    return out
+
+
+segment_min_bucketed.launches = 0
+
+
+def multilinear_dense(p: torch.Tensor, a: torch.Tensor):
+    """Min outgoing edge per vertex over a dense adjacency (paper §III-A).
+
+    For each row i, the lexicographic argmin over j of ``(a_ij, j)``
+    subject to ``p_i != p_j`` and ``a_ij < inf`` (NaN is never valid,
+    -inf is), with payload ``p_j`` of the winner. p [n] is cast to int32;
+    a must be a square, contiguous float32 [n, n] (+inf = no edge).
+    Returns (minw float32 [n], mincol int32 [n], minpay int32 [n]), the
+    identity ``(inf, IMAX, IMAX)`` at rows with no valid entry. When +0.0
+    and -0.0 tie for the minimum, the smaller column wins and the CUDA
+    kernel's ``minw`` carries the sign of ``a[i, mincol]`` (the plain
+    version's sign there is ``torch.amin``'s).
+
+    CPU tensors run :func:`~repro_torch.kernels.ref.multilinear_dense_ref`;
+    CUDA tensors launch ``csrc/multilinear_dense.cu``, on any n (no
+    padding).
+    """
+    if not isinstance(p, torch.Tensor) or not isinstance(a, torch.Tensor):
+        raise TypeError("p and a must be torch tensors")
+    if a.dtype != torch.float32:
+        raise ValueError(f"a must be float32, got {a.dtype}")
+    if a.dim() != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"a must be square [n, n], got {tuple(a.shape)}")
+    if not a.is_contiguous():
+        raise ValueError("a must be contiguous")
+    n = a.shape[0]
+    if p.shape != (n,):
+        raise ValueError(f"p must be [n] = [{n}], got {tuple(p.shape)}")
+    if p.device != a.device:
+        raise ValueError(f"p on {p.device} but a on {a.device}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+    p = p.to(torch.int32).contiguous()
+    if a.device.type == "cpu":
+        return multilinear_dense_ref(p, a)
+    minw = torch.empty(n, dtype=torch.float32, device=a.device)
+    mincol = torch.empty(n, dtype=torch.int32, device=a.device)
+    minpay = torch.empty(n, dtype=torch.int32, device=a.device)
+    _launch("multilinear_dense", p, a, n, minw, mincol, minpay)
+    multilinear_dense.launches += 1
+    return minw, mincol, minpay
+
+
+multilinear_dense.launches = 0
 
 
 def dedupe_segmin_backend(backend: str | None, device_type: str = "cuda"):
@@ -171,3 +292,39 @@ def make_packed_segmin(backend: str = "auto", device_type: str = "cuda"):
     if backend == "sorted":
         return segment_min_sorted
     raise ValueError(f"unknown segment-min backend {backend!r}")
+
+
+def bucket_edges_by_row_block(seg: torch.Tensor, keys: torch.Tensor, n: int,
+                              block_rows: int = 128):
+    """Group edges by output row block ``seg // block_rows`` and pad every
+    bucket to the widest one, rounded up to a multiple of 128 (at least
+    128), for :func:`segment_min_bucketed`.
+
+    seg: integer [E] in ``[0, n)``; keys: [E] uint32 pack32 values (any
+    integer dtype). Returns (keys int64 [NB, BE], rows int32 [NB, BE]) on
+    the input's device, NB = ceil(n / block_rows): within a bucket the
+    edges keep their input order; padding has the identity key and row 0.
+    The same arrays as the reference's host loop, built with one stable
+    sort and one scatter.
+    """
+    if seg.shape != keys.shape or seg.dim() != 1:
+        raise ValueError(f"seg and keys must be 1-D of one length, got "
+                         f"{tuple(seg.shape)} and {tuple(keys.shape)}")
+    dev = seg.device
+    nb = -(-n // block_rows)
+    e = seg.numel()
+    seg = seg.long()
+    if e and (int(seg.min()) < 0 or int(seg.max()) >= n):
+        raise ValueError(f"segment ids must lie in [0, {n})")
+    b = seg // block_rows
+    counts = torch.bincount(b, minlength=nb)
+    be = max(128, -(-int(counts.max()) // 128) * 128) if e else 128
+    order = torch.sort(b, stable=True).indices
+    b_s = b[order]
+    starts = torch.cumsum(counts, 0) - counts
+    pos = b_s * be + torch.arange(e, device=dev) - starts[b_s]
+    keys_out = torch.full((nb * be,), PACK_IDENTITY, dtype=torch.int64, device=dev)
+    rows_out = torch.zeros(nb * be, dtype=torch.int32, device=dev)
+    keys_out[pos] = keys.long()[order]
+    rows_out[pos] = (seg[order] - b_s * block_rows).to(torch.int32)
+    return keys_out.view(nb, be), rows_out.view(nb, be)

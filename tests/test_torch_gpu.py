@@ -1,6 +1,6 @@
 """Tests of the port that need the card (marker ``gpu``): the CUDA kernels
-against their plain versions, and the flat and coarsen paths on the card
-against the CPU. Elsewhere they skip. Run them on an H100 with
+against their plain versions, and the flat and coarsen paths,
+connectivity and SSSP on the card against the CPU. Elsewhere they skip. Run them on an H100 with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -95,3 +95,68 @@ def test_coarsen_path_on_card_matches_cpu(card):
     np.testing.assert_array_equal(a.msf_eids, b.msf_eids)
     np.testing.assert_array_equal(a.parent, b.parent)
     assert (a.weight, a.iterations, a.levels) == (b.weight, b.iterations, b.levels)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 256, 257, 4097])
+def test_multilinear_dense_kernel_matches_plain(card, n):
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=card).manual_seed(n)
+    a = torch.randint(1, 6, (n, n), generator=gen, device=card).to(torch.float32)  # ties
+    a[torch.rand(n, n, generator=gen, device=card) < 0.3] = float("inf")
+    a[torch.rand(n, n, generator=gen, device=card) < 0.05] = float("nan")
+    a[torch.rand(n, n, generator=gen, device=card) < 0.01] = float("-inf")
+    a[: max(1, n // 10)] = float("inf")  # rows with no entry
+    for p in (torch.randint(0, max(1, n // 4), (n,), generator=gen, device=card),
+              torch.zeros(n, dtype=torch.int32, device=card),
+              torch.arange(n, dtype=torch.int32, device=card)):
+        before = ops.multilinear_dense.launches
+        got = ops.multilinear_dense(p, a)
+        torch.cuda.synchronize()
+        assert ops.multilinear_dense.launches == before + 1
+        for g, w in zip(got, ref.multilinear_dense_ref(p.to(torch.int32), a)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("block_rows", [8, 128, 1024])
+def test_segment_min_bucketed_kernel_matches_plain(card, block_rows):
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=card).manual_seed(block_rows)
+    n, e = 50_000, 400_000
+    seg = torch.randint(0, n, (e,), generator=gen, device=card)
+    seg[: e // 4] = 17  # one row holds a quarter of the edges
+    keys = torch.randint(0, ref.PACK_IDENTITY + 1, (e,), generator=gen, device=card,
+                         dtype=torch.int64)
+    kb, rb = ops.bucket_edges_by_row_block(seg, keys, n, block_rows)
+    rb = torch.where(torch.rand(rb.shape, generator=gen, device=card) < 0.01,
+                     rb - block_rows, rb).to(torch.int32)  # some rows out of range
+    before = ops.segment_min_bucketed.launches
+    got = ops.segment_min_bucketed(kb, rb, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert ops.segment_min_bucketed.launches == before + 1
+    assert torch.equal(got, ref.segment_min_bucketed_ref(kb, rb, block_rows))
+
+
+def test_segment_min_bucketed_refuses_too_many_block_rows(card):
+    from repro_torch.kernels import ops
+
+    keys = torch.zeros((1, 128), dtype=torch.int64, device=card)
+    rows = torch.zeros((1, 128), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="segment_min_bucketed launch failed"):
+        ops.segment_min_bucketed(keys, rows, block_rows=1 << 15)  # 256 KB of slots
+
+
+def test_connectivity_and_sssp_on_card_match_cpu(card):
+    from repro_torch.core import connected_components
+    from repro_torch.core.sssp import sssp
+    from repro_torch.graphs import grid_road_graph, rmat_graph
+
+    for make in (lambda dev: rmat_graph(12, 8, seed=3, device=dev),
+                 lambda dev: grid_road_graph(40, 50, seed=3, device=dev)):
+        gc, gp = make(card), make("cpu")
+        a, b = connected_components(gc), connected_components(gp)
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)
+        (da, ia), (db, ib) = sssp(gc, 0), sssp(gp, 0)
+        assert ia == ib and torch.equal(da.cpu(), db)

@@ -95,7 +95,7 @@ def test_launcher_never_falls_back_to_cpu():
     s = torch.zeros(8, dtype=torch.int32)
     out = torch.empty(4, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        ops._launch_segment_min("segment_min_flat", k, s, out)
+        ops._launch("segment_min_flat", k, s, out, 8, 4)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -109,7 +109,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_build_is_keyed_on_source_hash():
-    assert build.sources() == ["segment_min_flat", "segment_min_sorted"]
+    assert build.sources() == ["multilinear_dense", "segment_min_bucketed",
+                               "segment_min_flat", "segment_min_sorted"]
     lib = build.library_path("segment_min_flat")
     assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
     assert lib == build.library_path("segment_min_flat")
@@ -216,7 +217,7 @@ def test_sorted_launcher_never_falls_back_to_cpu():
     out = torch.empty(4, dtype=torch.int64)
     before = ops.segment_min_sorted.launches
     with pytest.raises(RuntimeError, match="segment_min_sorted's CUDA kernel"):
-        ops._launch_segment_min("segment_min_sorted", k, s, out)
+        ops._launch("segment_min_sorted", k, s, out, 8, 4)
     assert ops.segment_min_sorted.launches == before
 
 
@@ -225,8 +226,8 @@ def test_sorted_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
-    ops._segment_min_lib.cache_clear()
+    ops._kernel_lib.cache_clear()
     build.load.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        ops._segment_min_lib("segment_min_sorted")
+        ops._kernel_lib("segment_min_sorted")
     assert not (tmp_path / "build").exists()
