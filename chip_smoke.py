@@ -8,7 +8,12 @@ Phases:
   2. build: every CUDA kernel from src/repro_torch/kernels/csrc with nvcc,
      one nvcc per source, all at once;
   3. each kernel against its plain PyTorch version on the card, exactly:
-     segment_min_flat on adversarial layouts; segment_min_sorted on the
+     segment_min_flat on adversarial layouts (the main-path shape, 90% of
+     the edges on one segment, R-MAT's round-2 shape with 2.1M live edges
+     on one segment, runs crossing warp and block boundaries, a live key
+     every 9th edge, all-identity warps between live ones, ids out of range
+     inside runs, misaligned views keys[1:], segs[1:], segs[3:] at
+     E in {1, 3, 5, 33, 2^20 + 7}); segment_min_sorted on the
      adversarial sorted layouts (one segment, all singletons, runs over
      many tiles, empty segments and gaps, E = 0, odd tails), one run
      holding 90% of the edges, and the dedupe inputs of level 0 of both
@@ -16,8 +21,9 @@ Phases:
      multilinear_dense at n in {1, 31, 33, 257, 4096, 4097} with empty
      rows, all-equal weights, NaN and -inf entries, p all equal and all
      distinct; segment_min_bucketed on the E = 0 layout, rows out of range
-     on both sides, one row holding a whole bucket, block_rows in
-     {8, 128, 1024};
+     on both sides, one row holding a whole bucket, BE = 128, 27,264-wide
+     buckets split over clusters (one all padding, one row holding a whole
+     bucket, and as views at an offset), block_rows in {8, 128, 1024};
   4. the property-suite graph classes solved on the card and on the CPU
      (flat: complete/csp/os x pack on/off; coarsen with a small cutoff):
      every SolveReport field identical;
@@ -51,9 +57,11 @@ Phases:
      the improving ones), in turns;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
-     (segment_min_flat: every AS round of the R-MAT flat solve;
+     (segment_min_flat: every AS round of the R-MAT and the grid flat
+     solves, each row with its live share and its bound;
      segment_min_sorted: every level's dedupe of both coarsen graphs;
-     multilinear_dense and segment_min_bucketed: the inputs of 6d),
+     multilinear_dense and segment_min_bucketed: the inputs of 6d, with
+     the split the bucketed wrapper chose),
      beside its plain version, the one PyTorch library call and its memory
      bound; end-to-end solve times (flat: kernel vs segmin="torch";
      coarsen vs flat), host syncs per solve, and torch.profiler
@@ -232,9 +240,36 @@ def kernel_cases(dev):
     e_main, n_main = 16_085_642, 1 << 20
     skew = segs_of(e_main, 0, n_main)
     skew[torch.rand(e_main, generator=gen, device=dev) < 0.9] = 7
+    # R-MAT s20 round 2: 90.3% of the keys live, 2.1M of them on one root
+    round2 = segs_of(e_main, 0, n_main)
+    round2[torch.rand(e_main, generator=gen, device=dev) < 0.146] = 4_321
+    e_adv, n_adv = (1 << 20) + 7, 70_000
+    # runs of equal ids, ~300 long in the first half and ~3 in the second
+    step = torch.rand(e_adv, generator=gen, device=dev) < torch.where(
+        torch.arange(e_adv, device=dev) < e_adv // 2, 1 / 300, 1 / 3)
+    runs = (torch.cumsum(step, 0) % n_adv).to(torch.int32)
+    ninth = keys_of(e_adv, 0.0)
+    ninth[torch.arange(e_adv, device=dev) % 9 != 0] = ident
+    dead_warps = keys_of(e_adv)
+    dead_warps[: e_adv - e_adv % 1024].view(-1, 1024)[::2] = ident
+    run_oor = torch.sort(segs_of(e_adv, 0, n_adv)).values
+    run_oor[torch.rand(e_adv, generator=gen, device=dev) < 0.2] = -1
+    run_oor[torch.rand(e_adv, generator=gen, device=dev) < 0.2] = n_adv
+    k_view, s_view = keys_of(e_adv + 3), segs_of(e_adv + 3, 0, n_adv)
+    views = [(f"view {kl}, {sl}, E = {e}", k_view[ko:ko + e], s_view[so:so + e], n_adv)
+             for kl, ko, sl, so in (("keys[1:]", 1, "segs[0:]", 0), ("keys[0:]", 0, "segs[1:]", 1),
+                                    ("keys[0:]", 0, "segs[3:]", 3), ("keys[1:]", 1, "segs[3:]", 3))
+             for e in (1, 3, 5, 33, e_adv)]
     cases = [
         ("uniform, main-path shape", keys_of(e_main), segs_of(e_main, 0, n_main), n_main),
         ("90% of edges in one segment", keys_of(e_main), skew, n_main),
+        ("R-MAT round-2 shape, 2.1M live edges on one segment", keys_of(e_main, 0.097), round2,
+         n_main),
+        ("runs crossing warp and block boundaries", keys_of(e_adv), runs, n_adv),
+        ("a live key only every 9th edge", ninth, segs_of(e_adv, 0, n_adv), n_adv),
+        ("all-identity warps between live ones", dead_warps, segs_of(e_adv, 0, n_adv), n_adv),
+        ("ids out of range inside runs of equal ids", keys_of(e_adv), run_oor, n_adv),
+        *views,
         ("E = 0", keys_of(0), segs_of(0, 0, 1), 1000),
         ("single segment", keys_of(1 << 20), segs_of(1 << 20, 0, 1), 1),
         ("all keys the identity", torch.full((1 << 20,), ident, dtype=torch.int64, device=dev),
@@ -414,12 +449,29 @@ def bucketed_kernel_cases(dev) -> int:
         one_row = rb.clone()
         one_row[1] = br // 2  # one row holds a whole bucket
         ke, re_ = ops.bucket_edges_by_row_block(seg[:0], keys[:0], n, br)
+        # a few wide buckets (R-MAT s14's width), each split over a cluster
+        wide_k = torch.randint(0, ident + 1, (5, 27_264), generator=gen, device=dev,
+                               dtype=torch.int64)
+        wide_k[1] = ident  # a bucket all padding
+        wide_r = torch.randint(-2, br + 2, wide_k.shape, generator=gen, device=dev,
+                               dtype=torch.int32)
+        wide_r[2] = br - 1  # one row holds a whole wide bucket
+        # the same layout 8 bytes (keys) and 12 bytes (rows) into its storage
+        off_k = torch.empty(wide_k.numel() + 1, dtype=torch.int64, device=dev)
+        off_k[1:] = wide_k.reshape(-1)
+        off_r = torch.empty(wide_r.numel() + 3, dtype=torch.int32, device=dev)
+        off_r[3:] = wide_r.reshape(-1)
         cases = [
             ("uniform", kb, rb),
             ("rows out of range, negative and >= block_rows", kb, torch.where(
                 torch.rand(rb.shape, generator=gen, device=dev) < 0.3, wild, rb)),
             ("one row holds a whole bucket", kb, one_row),
             ("E = 0 layout", ke, re_),
+            ("BE = 128, one bucket", kb[:1, :128].contiguous(), rb[:1, :128].contiguous()),
+            ("27,264-wide buckets split over chunks, one all padding, one row holding a "
+             "whole bucket", wide_k, wide_r),
+            ("the wide layout as views at an offset", off_k[1:].view(wide_k.shape),
+             off_r[3:].view(wide_r.shape)),
         ]
         for label, k, r in cases:
             got = ops.segment_min_bucketed(k, r, block_rows=br)
@@ -430,8 +482,9 @@ def bucketed_kernel_cases(dev) -> int:
             check(torch.equal(got, want),
                   f"segment_min_bucketed != plain version (block_rows={br}, {label}), "
                   f"max err {err}")
+            split = ops.bucketed_split(*k.shape, br, ops._sm_count(k.device))
             print(f"  segment_min_bucketed block_rows={br} {label}: NB x BE = "
-                  f"{tuple(k.shape)} exact", flush=True)
+                  f"{tuple(k.shape)} (chunks, buckets per block) = {split} exact", flush=True)
     return max_err
 
 
@@ -683,10 +736,13 @@ def bucketed_times(bucket_in) -> list:
         # The same layout with every entry's row spread over the block
         # (e % 128): the same bytes, no row holding more than its share.
         spread = (torch.arange(be, device=kb.device, dtype=torch.int32) % 128).expand(nb, be)
+        chunks, per_block = ops.bucketed_split(nb, be, 128, ops._sm_count(kb.device))
         rows.append({
             "input": label,
             "NB": nb,
             "BE": be,
+            "chunks": chunks,
+            "buckets_per_block": per_block,
             "fill": b["fill"],
             "kernel_ms": device_ms(kernel),
             "kernel_call_ms": time_ms(kernel),
@@ -858,11 +914,23 @@ def solve_times(g, specs: dict, reps: int = 3) -> dict:
     return {f"{k}_s": statistics.median(v) for k, v in times.items()}
 
 
+def segmin_bytes(keys, n) -> tuple[int, int]:
+    """(bytes, live entries) that a packed segment-min over ``keys`` into
+    ``n`` segments must move: every 8-byte key read once, a 4-byte id read
+    only under a live (non-identity) key, since an identity key leaves the
+    result as it is whatever its id, and the output written once (8 B per
+    segment)."""
+    from repro_torch.kernels import ref
+
+    live = int((keys != ref.PACK_IDENTITY).sum())
+    return keys.numel() * 8 + live * 4 + n * 8, live
+
+
 def round_times(g) -> list:
     """The segment-min kernel, its plain version and the one PyTorch library
     call timed on the inputs each AS round of the default solve hands the
     segment-min (recorded in a replay of the default driver), beside the
-    round's memory bound: keys and ids read once, the output written once."""
+    round's memory bound (:func:`segmin_bytes`)."""
     import torch
 
     from repro_torch.core.msf import run_flat
@@ -880,25 +948,29 @@ def round_times(g) -> list:
     for keys, segs in inputs:
         idx = segs.long()
         out = torch.full((n,), ref.PACK_IDENTITY, dtype=torch.int64, device=keys.device)
-        bytes_ = keys.numel() * keys.element_size() + segs.numel() * segs.element_size() + n * 8
+        bytes_, live = segmin_bytes(keys, n)
         kernel = partial(ops.segment_min_flat, keys, segs, n)
         library = partial(out.scatter_reduce_, 0, idx, keys, "amin", include_self=True)
-        rows.append({
+        row = {
+            "E": keys.numel(),
+            "live_entries": live,
+            "live_share": live / max(1, keys.numel()),
             "kernel_ms": device_ms(kernel),
             "kernel_call_ms": time_ms(kernel),
             "plain_ms": device_ms(partial(ref.segment_min_flat_ref, keys, segs, n)),
             "library_ms": device_ms(library),
             "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
             "bytes": bytes_,
-            "identity_key_share": float((keys == ref.PACK_IDENTITY).double().mean()),
-        })
+        }
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
     return rows
 
 
 def level_times(inputs) -> list:
     """The sorted kernel, its plain version and the one PyTorch library call
-    timed on each level's dedupe inputs, beside the level's memory bound:
-    keys and ids read once, the output written once."""
+    timed on each level's dedupe inputs, beside the level's memory bound
+    (:func:`segmin_bytes`)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -907,19 +979,19 @@ def level_times(inputs) -> list:
     for keys, segs, n in inputs:
         idx = segs.long()
         out = torch.full((n,), ref.PACK_IDENTITY, dtype=torch.int64, device=keys.device)
-        bytes_ = keys.numel() * keys.element_size() + segs.numel() * segs.element_size() + n * 8
+        bytes_, live = segmin_bytes(keys, n)
         kernel = partial(ops.segment_min_sorted, keys, segs, n)
         library = partial(out.scatter_reduce_, 0, idx, keys, "amin", include_self=True)
         rows.append({
             "E": keys.numel(),
             "num_segments": n,
+            "live_entries": live,
             "kernel_ms": device_ms(kernel),
             "kernel_call_ms": time_ms(kernel),
             "plain_ms": device_ms(partial(ref.segment_min_sorted_ref, keys, segs, n)),
             "library_ms": device_ms(library),
             "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
             "bytes": bytes_,
-            "identity_key_share": float((keys == ref.PACK_IDENTITY).double().mean()),
         })
     return rows
 
@@ -1055,8 +1127,11 @@ def main():
     phase("7 times")
     per_round = round_times(g_rmat)
     print(json.dumps({"segment_min_flat_per_round_rmat_s20_ef8": per_round, "card": smi}))
+    per_round_grid = round_times(g_grid)
+    print(json.dumps({"segment_min_flat_per_round_grid_1024x1024": per_round_grid, "card": smi}))
     fields = ("kernel_ms", "kernel_call_ms", "plain_ms", "library_ms", "bound_ms")
     mean = {k: statistics.fmean(r[k] for r in per_round) for k in fields}
+    mean_grid = {k: statistics.fmean(r[k] for r in per_round_grid) for k in fields}
     per_level = {label: level_times(ins) for label, ins in dedupe_in.items()}
     del dedupe_in, level0
     print(json.dumps({"segment_min_sorted_per_level": per_level, "card": smi}))
@@ -1117,7 +1192,9 @@ def main():
         "bound_ms": mean["bound_ms"],
         "bound_by": "bytes",
         "library_ms": mean["library_ms"],
-        "timed_on": "each AS round's inputs of the R-MAT flat main path, mean per launch; "
+        "grid_1024x1024": mean_grid,
+        "timed_on": "each AS round's inputs of the R-MAT flat main path, mean per launch "
+                    "(grid_1024x1024: the same over the grid's rounds); "
                     "ms, plain_ms, library_ms: device time (torch.profiler); call_ms: CUDA "
                     "events around back-to-back calls, the wrapper's host time included",
     }, {

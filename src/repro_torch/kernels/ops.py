@@ -30,12 +30,13 @@ _PTR, _I64 = ctypes.c_void_p, ctypes.c_longlong
 # The arguments of each kernel's C entry point ``<name>_launch``, in order,
 # before the trailing stream: tensors pass as device pointers, ints as 64 bits.
 _LAUNCH_ARGS = {
-    "segment_min_flat": (_PTR, _PTR, _PTR, _I64, _I64),  # keys, segs, out, E, S
+    # keys, segs, out, E, S, head, vec_ids (flat_layout)
+    "segment_min_flat": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _I64),
     "segment_min_sorted": (_PTR, _PTR, _PTR, _I64, _I64),  # keys, segs, out, E, S
     # p, a, n, minw, mincol, minpay
     "multilinear_dense": (_PTR, _PTR, _I64, _PTR, _PTR, _PTR),
-    # keys, rows, out, nb, be, block_rows
-    "segment_min_bucketed": (_PTR, _PTR, _PTR, _I64, _I64, _I64),
+    # keys, rows, out, nb, be, block_rows, chunks, buckets_per_block (bucketed_split)
+    "segment_min_bucketed": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64),
 }
 
 
@@ -78,6 +79,29 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
 
 
+@lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def flat_layout(keys_addr: int, segs_addr: int, num_edges: int) -> tuple[int, bool]:
+    """Where the flat kernel's warp body starts: ``(head, vec_ids)``.
+
+    The body reads keys two at a time (16 bytes) and, under ``vec_ids``,
+    ids four at a time, so it starts at the first edge ``head`` (< 4) at
+    which the key address is 16-byte aligned and, where the two addresses
+    allow it, the id address too; otherwise ``vec_ids`` is False and the
+    body reads ids one by one. The ``head`` edges before the body (at most
+    ``num_edges``) are reduced one by one. ``keys_addr`` and ``segs_addr``
+    are the data addresses of an int64 and an int32 tensor, so 8- and
+    4-byte aligned (a view such as ``keys[1:]`` is only that).
+    """
+    ks = keys_addr // 8 % 2  # keys past a 16-byte boundary
+    ss = segs_addr // 4 % 4  # ids past a 16-byte boundary
+    head, vec_ids = ((4 - ss) % 4, True) if ss % 2 == ks else (ks, False)
+    return min(head, num_edges), vec_ids
+
+
 def _check_segment_min_args(keys, segs, num_segments) -> None:
     if not isinstance(keys, torch.Tensor) or not isinstance(segs, torch.Tensor):
         raise TypeError("keys and segs must be torch tensors")
@@ -113,7 +137,8 @@ def segment_min_flat(keys: torch.Tensor, segs: torch.Tensor, num_segments: int) 
     if keys.device.type == "cpu":
         return segment_min_flat_ref(keys, segs, num_segments)
     out = torch.empty(num_segments, dtype=torch.int64, device=keys.device)
-    _launch("segment_min_flat", keys, segs, out, keys.numel(), num_segments)
+    head, vec_ids = flat_layout(keys.data_ptr(), segs.data_ptr(), keys.numel())
+    _launch("segment_min_flat", keys, segs, out, keys.numel(), num_segments, head, int(vec_ids))
     segment_min_flat.launches += 1
     return out
 
@@ -176,6 +201,40 @@ def _check_bucketed_args(keys, rows, block_rows) -> None:
         raise ValueError("keys and rows must be contiguous")
 
 
+# About how many entries a block of the bucketed kernel should reduce, so
+# that setting and writing its slots stays a small share of its work.
+_BUCKET_BLOCK_ENTRIES = 4096
+_MAX_CLUSTER = 8  # the card's portable thread-block cluster size
+_DEFAULT_SHARED_BYTES = 48 * 1024
+
+
+def bucketed_split(nb: int, be: int, block_rows: int, sms: int) -> tuple[int, int]:
+    """How the bucketed kernel cuts an [NB, BE] layout into blocks:
+    ``(chunks, buckets_per_block)``, one of them 1.
+
+    A few wide buckets (R-MAT's hubs) are each cut into ``chunks`` ranges,
+    one block per range and one thread-block cluster per bucket, doubling
+    while the card holds fewer than 8 blocks per SM (``sms`` SMs) and a
+    range keeps at least a quarter of ``_BUCKET_BLOCK_ENTRIES``; at most
+    ``_MAX_CLUSTER``, and only while one bucket's slots fit in 48 KB of
+    shared memory. Narrow buckets (the grid's) go ``buckets_per_block`` to
+    a block, doubling while a block holds fewer than
+    ``_BUCKET_BLOCK_ENTRIES`` entries, the card keeps at least one block
+    per SM and the slots fit in 48 KB.
+    """
+    slot_bytes = block_rows * 8
+    chunks = 1
+    while (chunks < _MAX_CLUSTER and be // (2 * chunks) >= _BUCKET_BLOCK_ENTRIES // 4
+           and nb * chunks < 8 * sms and slot_bytes <= _DEFAULT_SHARED_BYTES):
+        chunks *= 2
+    per_block = 1
+    while (chunks == 1 and per_block * be < _BUCKET_BLOCK_ENTRIES
+           and -(-nb // (2 * per_block)) >= sms
+           and 2 * per_block * slot_bytes <= _DEFAULT_SHARED_BYTES):
+        per_block *= 2
+    return chunks, per_block
+
+
 def segment_min_bucketed(keys: torch.Tensor, rows: torch.Tensor, *,
                          block_rows: int = 128) -> torch.Tensor:
     """Packed segment-min over edges pre-grouped by output row block:
@@ -186,15 +245,17 @@ def segment_min_bucketed(keys: torch.Tensor, rows: torch.Tensor, *,
     int64 [NB * block_rows]; rows outside ``[0, block_rows)`` are dropped.
     The layout comes from :func:`bucket_edges_by_row_block`. CPU tensors
     run :func:`~repro_torch.kernels.ref.segment_min_bucketed_ref`; CUDA
-    tensors launch ``csrc/segment_min_bucketed.cu``, which raises when
-    ``block_rows * 8`` bytes exceed the card's shared memory per block.
+    tensors launch ``csrc/segment_min_bucketed.cu``, cut into blocks by
+    :func:`bucketed_split`; the launch raises when ``block_rows * 8`` bytes
+    exceed the card's shared memory per block.
     """
     _check_bucketed_args(keys, rows, block_rows)
     if keys.device.type == "cpu":
         return segment_min_bucketed_ref(keys, rows, block_rows)
     nb, be = keys.shape
     out = torch.empty(nb * block_rows, dtype=torch.int64, device=keys.device)
-    _launch("segment_min_bucketed", keys, rows, out, nb, be, block_rows)
+    chunks, per_block = bucketed_split(nb, be, block_rows, _sm_count(keys.device))
+    _launch("segment_min_bucketed", keys, rows, out, nb, be, block_rows, chunks, per_block)
     segment_min_bucketed.launches += 1
     return out
 

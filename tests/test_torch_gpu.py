@@ -36,6 +36,71 @@ def test_segment_min_flat_kernel_matches_plain(card, n, e, lo, hi):
     assert torch.equal(got, ref.segment_min_flat_ref(keys, segs, n))
 
 
+def _flat_inputs(card, e, n, seed, live_share=0.9):
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=card).manual_seed(seed)
+    keys = torch.randint(0, ref.PACK_IDENTITY, (e,), generator=gen, device=card,
+                         dtype=torch.int64)
+    keys[torch.rand(e, generator=gen, device=card) >= live_share] = ref.PACK_IDENTITY
+    segs = torch.randint(0, n, (e,), generator=gen, device=card, dtype=torch.int32)
+    return keys, segs, gen
+
+
+def _check_flat(keys, segs, n):
+    from repro_torch.kernels import ops, ref
+
+    before = ops.segment_min_flat.launches
+    got = ops.segment_min_flat(keys, segs, n)
+    torch.cuda.synchronize()
+    assert ops.segment_min_flat.launches == before + 1
+    assert torch.equal(got, ref.segment_min_flat_ref(keys, segs, n))
+
+
+@pytest.mark.parametrize("view", ["keys[1:]", "segs[1:]", "segs[3:]", "keys[1:], segs[3:]"])
+@pytest.mark.parametrize("e", [1, 3, 5, 33, (1 << 20) + 7])
+def test_segment_min_flat_kernel_on_misaligned_views(card, view, e):
+    keys, segs, _ = _flat_inputs(card, e + 3, 5000, e)
+    ko = 1 if view.startswith("keys[1:]") else 0
+    so = {"keys[1:]": 0, "segs[1:]": 1}.get(view, 3)
+    _check_flat(keys[ko:ko + e], segs[so:so + e], 5000)
+
+
+def _flat_adversarial(card, case):
+    from repro_torch.kernels import ref
+
+    ident = ref.PACK_IDENTITY
+    e, n = 300_007, 20_000
+    keys, segs, gen = _flat_inputs(card, e, n, 7)
+    if case == "runs across warps and blocks":
+        # runs of equal ids, ~300 long in the first half and ~3 in the second,
+        # so that runs start and end anywhere in a warp's or block's edges
+        p = torch.where(torch.arange(e, device=card) < e // 2, 1 / 300, 1 / 3)
+        step = torch.rand(e, generator=gen, device=card) < p
+        segs = (torch.cumsum(step, 0) % n).to(torch.int32)
+    elif case == "a live key only every 9th edge":
+        keys[torch.arange(e, device=card) % 9 != 0] = ident
+    elif case == "all-identity warps between live ones":
+        keys.view(-1)[: e - e % 512].view(-1, 512)[::2] = ident  # every other 512 edges dead
+    elif case == "ids out of range inside runs of equal ids":
+        segs = torch.sort(segs).values
+        segs[torch.rand(e, generator=gen, device=card) < 0.2] = -1
+        segs[torch.rand(e, generator=gen, device=card) < 0.2] = n
+    elif case == "one segment takes 2.1M of 14.5M live edges":
+        e, n = 16_085_642, 1 << 20
+        keys, segs, gen = _flat_inputs(card, e, n, 8, live_share=0.903)
+        segs[torch.rand(e, generator=gen, device=card) < 0.146] = 12_345
+    return keys, segs.contiguous(), n
+
+
+@pytest.mark.parametrize("case", [
+    "runs across warps and blocks", "a live key only every 9th edge",
+    "all-identity warps between live ones", "ids out of range inside runs of equal ids",
+    "one segment takes 2.1M of 14.5M live edges"])
+def test_segment_min_flat_kernel_adversarial(card, case):
+    _check_flat(*_flat_adversarial(card, case))
+
+
 def test_main_path_on_card_matches_cpu(card):
     from repro_torch.graphs import rmat_graph
     from repro_torch.kernels import ops
@@ -136,6 +201,36 @@ def test_segment_min_bucketed_kernel_matches_plain(card, block_rows):
     torch.cuda.synchronize()
     assert ops.segment_min_bucketed.launches == before + 1
     assert torch.equal(got, ref.segment_min_bucketed_ref(kb, rb, block_rows))
+
+
+@pytest.mark.parametrize("case", [
+    "BE = 128, one chunk", "one 27,264-wide bucket over many chunks",
+    "a bucket all padding", "one row holds a whole wide bucket",
+    "wide buckets, block_rows = 8", "wide buckets, block_rows = 1024"])
+def test_segment_min_bucketed_kernel_split_layouts(card, case):
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=card).manual_seed(len(case))
+    nb, be, block_rows = (1, 128, 128) if case.startswith("BE = 128") else (3, 27_264, 128)
+    if case.startswith("one 27,264"):
+        nb = 1
+    if case.startswith("wide buckets"):
+        block_rows = int(case.rsplit(" ", 1)[1])
+    keys = torch.randint(0, ref.PACK_IDENTITY + 1, (nb, be), generator=gen, device=card,
+                         dtype=torch.int64)
+    rows = torch.randint(-2, block_rows + 2, (nb, be), generator=gen, device=card,
+                         dtype=torch.int32)
+    if case == "a bucket all padding":
+        keys[1] = ref.PACK_IDENTITY
+    if case == "one row holds a whole wide bucket":
+        rows[2] = block_rows - 1
+    chunks, _ = ops.bucketed_split(nb, be, block_rows, ops._sm_count(keys.device))
+    assert chunks == (1 if be == 128 else ops._MAX_CLUSTER)
+    before = ops.segment_min_bucketed.launches
+    got = ops.segment_min_bucketed(keys, rows, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert ops.segment_min_bucketed.launches == before + 1
+    assert torch.equal(got, ref.segment_min_bucketed_ref(keys, rows, block_rows))
 
 
 def test_segment_min_bucketed_refuses_too_many_block_rows(card):

@@ -95,7 +95,7 @@ def test_launcher_never_falls_back_to_cpu():
     s = torch.zeros(8, dtype=torch.int32)
     out = torch.empty(4, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        ops._launch("segment_min_flat", k, s, out, 8, 4)
+        ops._launch("segment_min_flat", k, s, out, 8, 4, 0, 1)  # head 0, vec_ids
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -233,7 +233,7 @@ def test_new_launchers_never_fall_back_to_cpu():
     rows = torch.zeros((1, 128), dtype=torch.int32)
     out = torch.empty(128, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="segment_min_bucketed's CUDA kernel"):
-        ops._launch("segment_min_bucketed", keys, rows, out, 1, 128, 128)
+        ops._launch("segment_min_bucketed", keys, rows, out, 1, 128, 128, 1, 1)
     p = torch.zeros(4, dtype=torch.int32)
     a = torch.zeros((4, 4))
     outs = [torch.empty(4), torch.empty(4, dtype=torch.int32), torch.empty(4, dtype=torch.int32)]
