@@ -55,6 +55,22 @@ Phases:
      syncs and median solve times, and sssp with each relaxation form
      forced (every candidate scattered, as the reference does, or only
      the improving ones), in turns;
+  6f. the stream path, plan(n, SolveSpec(mode="stream")): A, the
+     reference's acceptance stream (R-MAT scale 16, edge factor 2, seed 7,
+     batch_capacity 8192; n = 2^16, so the packed live-key probe runs on
+     the card), flat and coarsen-assisted (coarsen_threshold 2^15): the
+     union shape after every batch, weight and partition against scipy
+     and the flat solve, the same forest gids both ways, one flat launch
+     per AS round, the sorted kernel launched by the levels; B, the first
+     32 of the 62 batches of 131,072 pairs of phase 5's graph (n > 2^16:
+     the host probe): weight and partition against scipy, one flat launch
+     per AS round, 2^14 QueryService answers against scipy's labels and
+     component sizes, a third of the pairs deleted, the unhealed deletions
+     recertified (coarsen-assisted: the sorted kernel), the result against
+     scipy's MSF of the survivors, and a save_stream/restore_stream round
+     trip into a fresh engine; insert latency (median, p95), host syncs
+     and the host stages of one update, query throughput (the device's
+     busy time over one more update is profiled last, in phase 7);
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -91,6 +107,22 @@ RMAT = dict(scale=20, edge_factor=8, seed=0)
 # they need 2 * next_pow2(m) < 2^24 - 1 (m = undirected edges).
 RMAT_COARSEN = dict(scale=19, edge_factor=8, seed=0)
 GRID = (1024, 1024)
+# Phase 6f. A: the reference's acceptance stream (tests/test_stream.py),
+# n = 2^16 so the packed live-key probe runs on the card. B: the flat main
+# path's graph in batches of 131,072 (n > 2^16: the host int64 probe).
+STREAM_A = dict(scale=16, edge_factor=2, seed=7)
+STREAM_A_BATCH = 8192
+STREAM_B_BATCH = 131_072
+# A prefix of B's 62 batches: 32 batches, 4,194,304 of its 8,042,821
+# pairs, keep phase 6f near 45 s, and the survivors of the delete third
+# (2,796,203) fit the coarsening levels' pack32 index field
+# (2 * next_pow2(m) < 2^24 - 1), so the recertify runs the sorted kernel.
+STREAM_B_BATCHES = 32
+# Above every insert union's live edges ((n - 1) + 131,072), below the
+# survivors a recertify replays: the inserts stay flat, the recertify is
+# coarsen-assisted.
+STREAM_B_COARSEN_THRESHOLD = 1 << 21
+STREAM_QUERIES = 1 << 14
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
 # dense n x n float32 adjacency (1 GiB and 64 MiB).
 DENSE_GRAPHS = {"rmat_s14_ef8": dict(scale=14, edge_factor=8, seed=1),
@@ -802,11 +834,7 @@ def main_path(label, g):
     check(launches > 0 and launches == rep.iterations,
           f"{label}: {launches} kernel launches for {rep.iterations} AS rounds")
 
-    valid = g.valid.cpu().numpy()
-    eid = g.eid.cpu().numpy()[valid]
-    w_by_eid = np.zeros(int(eid.max()) + 1, np.float64)
-    w_by_eid[eid] = g.w.cpu().numpy()[valid]
-    weight64 = float(w_by_eid[rep.msf_eids].sum())
+    weight64 = eid_weight(g, rep.msf_eids)
     oracle = nx_free_msf_weight(g)
     ncomp = nx_free_n_components(g)
     check(weight64 == oracle, f"{label}: MSF weight {weight64} != scipy {oracle}")
@@ -839,13 +867,12 @@ def coarsen_path(label, g, flat_rep):
     from repro_torch.solve import SolveSpec, plan
 
     p = plan(g, SolveSpec(mode="coarsen"))
-    ops.segment_min_flat.launches = ops.segment_min_sorted.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     rep = p.solve()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"segment_min_flat": ops.segment_min_flat.launches,
-                "segment_min_sorted": ops.segment_min_sorted.launches}
+    launches = read_counts()
     be = p.engine.last_backends
     check(be.pack is True, f"{label}: the levels did not resolve pack32")
     check(be.dedupe == "device", f"{label}: dedupe resolved to {be.dedupe!r}, not 'device'")
@@ -866,11 +893,7 @@ def coarsen_path(label, g, flat_rep):
     check(launches["segment_min_flat"] == want_flat,
           f"{label}: {launches['segment_min_flat']} flat launches, expected {want_flat}")
 
-    valid = g.valid.cpu().numpy()
-    eid = g.eid.cpu().numpy()[valid]
-    w_by_eid = np.zeros(int(eid.max()) + 1, np.float64)
-    w_by_eid[eid] = g.w.cpu().numpy()[valid]
-    weight64 = float(w_by_eid[rep.msf_eids].sum())
+    weight64 = eid_weight(g, rep.msf_eids)
     oracle = nx_free_msf_weight(g)
     ncomp = nx_free_n_components(g)
     check(weight64 == oracle, f"{label}: coarsen MSF weight {weight64} != scipy {oracle}")
@@ -891,6 +914,315 @@ def coarsen_path(label, g, flat_rep):
           f"msf_edges={rep.n_msf_edges} components={ncomp} first_solve_s={first_s:.3f}",
           flush=True)
     return launches, rep
+
+
+def undirected_stream(g, seed):
+    """Host (lo, hi, w) of ``g``'s undirected edges in a default_rng(seed)
+    permutation: the insert stream of tests/test_stream.py's acceptance
+    test."""
+    import numpy as np
+
+    valid = g.valid.cpu().numpy()
+    src, dst, w = (x.cpu().numpy() for x in (g.src, g.dst, g.w))
+    sel = valid & (src < dst)
+    lo, hi, w = src[sel], dst[sel], w[sel]
+    perm = np.random.default_rng(seed).permutation(len(lo))
+    return lo[perm], hi[perm], w[perm]
+
+
+def minvertex(labels):
+    """Each vertex's component labelled by its minimum vertex (numpy)."""
+    import numpy as np
+
+    labels = np.asarray(labels, np.int64)
+    first = np.full(int(labels.max()) + 1, len(labels), np.int64)
+    np.minimum.at(first, labels, np.arange(len(labels)))
+    return first[labels]
+
+
+def scipy_forest(lo, hi, w, n):
+    """scipy's MSF weight, min-vertex component labels and each vertex's
+    component size for the unique undirected pairs (lo, hi, w)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csg
+
+    a = sp.coo_matrix((w.astype(np.float64), (lo, hi)), shape=(n, n)).tocsr()
+    weight = float(csg.minimum_spanning_tree(a).sum())
+    _, labels = csg.connected_components(a, directed=False)
+    return weight, minvertex(labels), np.bincount(labels)[labels]
+
+
+def eid_weight(g, eids) -> float:
+    """float64 sum of ``g``'s weights over ``eids``."""
+    import numpy as np
+
+    valid = g.valid.cpu().numpy()
+    eid = g.eid.cpu().numpy()[valid]
+    w_by_eid = np.zeros(int(eid.max()) + 1, np.float64)
+    w_by_eid[eid] = g.w.cpu().numpy()[valid]
+    return float(w_by_eid[eids].sum())
+
+
+def stream_labels(p):
+    """Min-vertex labels of a stream plan's published snapshot."""
+    return minvertex(p.engine.snapshots.acquire().parent.cpu().numpy())
+
+
+def reset_counts():
+    from repro_torch.kernels import ops
+
+    ops.segment_min_flat.launches = ops.segment_min_sorted.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import ops
+
+    return {"segment_min_flat": ops.segment_min_flat.launches,
+            "segment_min_sorted": ops.segment_min_sorted.launches}
+
+
+def stream_launches(stream_a, stream_b, kernel) -> dict:
+    """``kernel``'s launches on each run of phase 6f."""
+    return {
+        "stream rmat_s16_ef2 inserts": stream_a["flat"]["launches"][kernel],
+        "stream rmat_s16_ef2 inserts, coarsen-assisted": stream_a["coarsen"]["launches"][kernel],
+        "stream rmat_s20_ef8 inserts": stream_b["launches"]["inserts"][kernel],
+        "stream rmat_s20_ef8 deletes and recertify":
+            stream_b["launches"]["deletes_and_recertify"][kernel],
+    }
+
+
+def stream_acceptance(g) -> dict:
+    """Phase 6f A: the reference's acceptance stream (R-MAT scale 16, edge
+    factor 2, seed 7, batch_capacity 8192, n <= 2^16 so the packed probe
+    runs on the card) through plan(n, SolveSpec(mode="stream")).update,
+    flat and coarsen-assisted; each checked against scipy and the flat
+    solve. Returns the launches of each run."""
+    import numpy as np
+
+    from repro_torch.coarsen import CoarsenConfig
+    from repro_torch.solve import SolveSpec, plan
+
+    n, cap = g.n, STREAM_A_BATCH
+    lo, hi, w = undirected_stream(g, STREAM_A["seed"])
+    weight, labels, _ = scipy_forest(lo, hi, w, n)
+    flat = plan(g, SolveSpec()).solve()
+    check(eid_weight(g, flat.msf_eids) == weight, "stream A: flat solve weight != scipy")
+    check(np.array_equal(minvertex(flat.parent), labels), "stream A: flat partition != scipy")
+    runs, out = {}, {}
+    for name, extra in (("flat", {}), ("coarsen", dict(coarsen=CoarsenConfig(),
+                                                       coarsen_threshold=1 << 15))):
+        p = plan(n, SolveSpec(mode="stream", batch_capacity=cap, **extra))
+        check(p.engine.device.type == "cuda", f"stream A {name}: the engine is not on the card")
+        iters, levels = 0, 0
+        reset_counts()
+        t0 = time.perf_counter()
+        for k in range(0, len(lo), cap):
+            rep = p.update(lo[k:k + cap], hi[k:k + cap], w[k:k + cap])
+            iters += rep.iterations
+            levels += len(rep.levels)
+            check(p.engine.last_union_shape == (2 * (n - 1 + cap),),
+                  f"stream A {name}: union shape {p.engine.last_union_shape}")
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        check(p.engine.weight == weight, f"stream A {name}: weight {p.engine.weight} != {weight}")
+        check(np.array_equal(stream_labels(p), labels), f"stream A {name}: partition != scipy")
+        check(not rep.stale and rep.n_msf_edges == n - len(np.unique(labels)),
+              f"stream A {name}: stale or wrong forest size")
+        runs[name] = p
+        out[name] = {"batches": -(-len(lo) // cap), "levels": levels, "iterations": iters,
+                     "launches": launches, "stream_s": secs}
+    check(out["flat"]["launches"] == {"segment_min_flat": out["flat"]["iterations"],
+                                      "segment_min_sorted": 0},
+          f"stream A flat: launches {out['flat']['launches']} for "
+          f"{out['flat']['iterations']} AS rounds")
+    c = out["coarsen"]
+    check(c["levels"] > 0 and c["launches"]["segment_min_sorted"] > 0
+          and c["launches"]["segment_min_flat"] > 0,
+          f"stream A coarsen: {c['levels']} levels, launches {c['launches']}")
+    check(set(runs["coarsen"].engine.forest_gids().tolist())
+          == set(runs["flat"].engine.forest_gids().tolist()),
+          "stream A: coarsen-assisted forest gids differ from the flat stream's")
+    print(f"  rmat_s16_ef2 stream: n={n} edges={len(lo)} weight={weight} (scipy) == flat solve; "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def update_split(fn) -> dict:
+    """Host seconds of one stream update by stage: each of the engine's
+    stages wrapped in a timer for the call (numpy and the device solve
+    run inside them; the stages nest, as listed in PERF.md)."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from repro_torch.solve import engines as plan_engines
+    from repro_torch.stream import delta, engine
+
+    eng = engine.StreamEngine
+    stages = [(eng, "insert_batch"), (delta, "prepare_batch"), (eng, "_classify"),
+              (eng, "_run_union"), (eng, "_union_graph"), (eng, "_solve_graph"),
+              (engine, "_to_host"), (eng, "_commit"), (engine, "_canonicalize"),
+              (delta.Reservoir, "absorb"), (eng, "_refresh_live_index"),
+              (delta, "build_live_index"), (engine, "make_snapshot"),
+              (plan_engines._StreamPlanEngine, "_report")]
+    split = {}
+
+    def timed(name, f):
+        def stage(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return f(*args, **kw)
+            finally:
+                split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+        return stage
+
+    with ExitStack() as stack:
+        for owner, name in stages:
+            stack.enter_context(mock.patch.object(owner, name, timed(name, getattr(owner, name))))
+        t0 = time.perf_counter()
+        fn()
+        split["update"] = time.perf_counter() - t0
+    return split
+
+
+def profile_update(fn) -> dict:
+    """The device's busy time over one stream update (every kernel and
+    copy, torch.profiler) and its largest rows. Run last: on the card,
+    profiler sessions after one over a stream update recorded no device
+    events."""
+    rows = sorted(device_rows(fn), key=lambda e: e.self_device_time_total, reverse=True)
+    return {"device_busy_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "top": [{"op": e.key[:60], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3} for e in rows[:6]]}
+
+
+def stream_rmat20(g):
+    """Phase 6f B: the first ``STREAM_B_BATCHES`` batches of 131,072 pairs
+    of the flat main path's graph (R-MAT scale 20, edge factor 8, seed 0)
+    streamed through a stream plan on the card (n > 2^16: the host int64
+    probe) and checked against scipy and the flat solve of the same pairs;
+    a third of the pairs deleted,
+    the unhealed deletions recertified (coarsen-assisted), queries
+    answered, and the state saved and restored into a fresh engine. Every
+    result checked against scipy; insert latencies, the host/device split
+    of one update, host syncs and query throughput measured."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.coarsen import CoarsenConfig
+    from repro_torch.graphs.structures import from_edges
+    from repro_torch.solve import SolveSpec, plan
+    from repro_torch.stream.persist import restore_stream, save_stream
+
+    n, cap = g.n, STREAM_B_BATCH
+    lo, hi, w = undirected_stream(g, RMAT["seed"])
+    full = len(lo)
+    lo, hi, w = (x[:STREAM_B_BATCHES * cap] for x in (lo, hi, w))
+    weight, labels, sizes = scipy_forest(lo, hi, w, n)
+    g_prefix = from_edges(lo, hi, w, n, device="cuda")
+    flat = plan(g_prefix, SolveSpec()).solve()
+    check(eid_weight(g_prefix, flat.msf_eids) == weight, "stream B: flat solve weight != scipy")
+    check(np.array_equal(minvertex(flat.parent), labels), "stream B: flat partition != scipy")
+    del g_prefix
+    # Inserts hold at most (n - 1) + 131,072 live union edges and stay flat;
+    # the recertify over the survivors passes the threshold.
+    spec = SolveSpec(mode="stream", batch_capacity=cap, coarsen=CoarsenConfig(),
+                     coarsen_threshold=STREAM_B_COARSEN_THRESHOLD)
+    p = plan(n, spec)
+    check(p.engine.device.type == "cuda", "stream B: the engine is not on the card")
+    reps, lat, row = [], [], {"edges": len(lo), "edges_in_graph": full}
+    starts = range(0, len(lo), cap)
+    reset_counts()
+    t_stream = time.perf_counter()
+    for i, k in enumerate(starts):
+        def update():
+            reps.append(p.update(lo[k:k + cap], hi[k:k + cap], w[k:k + cap]))
+        # the last two batches, where the forest is largest, are measured
+        last = len(starts) - i
+        if last == 2:
+            row["host_syncs_per_update"] = count_syncs(update)
+        elif last == 1:
+            row["host_split_one_update_s"] = update_split(update)
+        else:
+            t0 = time.perf_counter()
+            update()
+            lat.append(time.perf_counter() - t0)
+        check(p.engine.last_union_shape == (2 * (n - 1 + cap),),
+              f"stream B: union shape {p.engine.last_union_shape}")
+    row["stream_s"] = time.perf_counter() - t_stream
+    launches = {"inserts": read_counts()}
+    iters = sum(r.iterations for r in reps)
+    check(launches["inserts"] == {"segment_min_flat": iters, "segment_min_sorted": 0},
+          f"stream B: launches {launches['inserts']} for {iters} AS rounds")
+    check(p.engine.weight == weight, f"stream B: weight {p.engine.weight} != scipy {weight}")
+    check(np.array_equal(stream_labels(p), labels), "stream B: partition != scipy")
+    lat.sort()
+    row.update(batches=len(reps), iterations=iters, forest_edges=p.engine.n_forest_edges,
+               insert_latency_median_s=statistics.median(lat),
+               insert_latency_p95_s=lat[min(len(lat) - 1, int(0.95 * len(lat)))])
+
+    svc = p.service
+    qu, qv = np.random.default_rng(1).integers(0, n, (2, STREAM_QUERIES))
+    ans = svc.answer(qu, qv)
+    check(np.array_equal(ans.connected, labels[qu] == labels[qv]), "stream B: connected != scipy")
+    check(np.array_equal(ans.size, sizes[qu]), "stream B: component sizes != scipy")
+    check(ans.snapshot.version == p.engine.version, "stream B: answers pinned to an old version")
+    reps_q = 20
+    t0 = time.perf_counter()
+    for _ in range(reps_q):
+        svc.answer(qu, qv)
+    row["query_batch"] = STREAM_QUERIES
+    row["queries_per_s"] = reps_q * STREAM_QUERIES / (time.perf_counter() - t0)
+
+    gone = np.random.default_rng(2).permutation(len(lo))[: len(lo) // 3]
+    keep = np.ones(len(lo), bool)
+    keep[gone] = False
+    reset_counts()
+    t0 = time.perf_counter()
+    dels = [p.delete(lo[gone[k:k + cap]], hi[gone[k:k + cap]]) for k in range(0, len(gone), cap)]
+    row["delete_batches"] = len(dels)
+    row["delete_s"] = time.perf_counter() - t0
+    row["unhealed_after_deletes"] = p.engine.unhealed
+    if p.engine.unhealed:
+        t0 = time.perf_counter()
+        rec = p.recertify(lo[keep], hi[keep], w[keep])
+        row["recertify_s"] = time.perf_counter() - t0
+        row["recertify_levels"] = [tuple(lv) for lv in rec.levels]
+        check(len(rec.levels) > 0, "stream B: the recertify was not coarsen-assisted")
+    launches["deletes_and_recertify"] = read_counts()
+    check(launches["deletes_and_recertify"]["segment_min_flat"] > 0,
+          "stream B: the deletes' heals launched no flat segment-min")
+    if "recertify_s" in row:
+        check(launches["deletes_and_recertify"]["segment_min_sorted"] > 0,
+              "stream B: the coarsen-assisted recertify launched no sorted segment-min")
+    snap = p.engine.snapshots.acquire()
+    weight_s, labels_s, _ = scipy_forest(lo[keep], hi[keep], w[keep], n)
+    check(not snap.stale and snap.n_unhealed == 0, "stream B: stale snapshot after recertify")
+    check(p.engine.weight == weight_s and snap.weight == weight_s,
+          f"stream B: weight after deletes {p.engine.weight} != scipy {weight_s}")
+    check(np.array_equal(stream_labels(p), labels_s), "stream B: partition after deletes != scipy")
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        step = save_stream(d, p.engine)
+        q = plan(n, spec)
+        check(restore_stream(d, q.engine) == step == p.engine.version, "stream B: restore step")
+        row["save_restore_s"] = time.perf_counter() - t0
+    a, b = p.engine, q.engine
+    check(a.weight == b.weight and set(a.forest_gids().tolist()) == set(b.forest_gids().tolist())
+          and torch.equal(a.snapshots.acquire().parent, b.snapshots.acquire().parent)
+          and b.snapshots.acquire().version == a.version,
+          "stream B: the restored engine differs from the saved one")
+    row["launches"] = launches
+    print(f"  rmat_s20_ef8 stream: n={n} edges={len(lo)} weight={weight} (scipy) == flat "
+          f"solve; deletes "
+          f"{len(gone)} -> weight {weight_s} (scipy); restored; {json.dumps(row)}", flush=True)
+    # phase 7 profiles one more update: the first deleted batch inserted again
+    again = gone[:cap]
+    return row, partial(p.update, lo[again], hi[again], w[again])
 
 
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
@@ -1124,6 +1456,15 @@ def main():
     cc_rows = {label: cc_sssp(label, g, flat_reps[label])
                for label, g in (("rmat_s20_ef8", g_rmat), ("grid_1024x1024", g_grid))}
 
+    phase("6f stream path")
+    t6f = t0 = time.perf_counter()
+    g_s16 = rmat_graph(**STREAM_A, device="cuda")
+    print(f"  rmat_s16_ef2 generated in {time.perf_counter() - t0:.1f} s (host)", flush=True)
+    stream_a = stream_acceptance(g_s16)
+    stream_b, stream_update = stream_rmat20(g_rmat)
+    print(json.dumps({"stream_rmat_s20_ef8": stream_b, "card": smi}))
+    print(f"  phase 6f took {time.perf_counter() - t6f:.1f} s", flush=True)
+
     phase("7 times")
     per_round = round_times(g_rmat)
     print(json.dumps({"segment_min_flat_per_round_rmat_s20_ef8": per_round, "card": smi}))
@@ -1168,6 +1509,10 @@ def main():
     print(json.dumps({"multilinear_dense_entry_points": dense_rows, "card": smi}))
     bucket_rows = bucketed_times(bucket_in)
     print(json.dumps({"segment_min_bucketed_entry_points": bucket_rows, "card": smi}))
+    prof = profile_update(stream_update)
+    prof["host_share_of_median_update"] = 1 - (prof["device_busy_ms"] / 1e3
+                                               / stream_b["insert_latency_median_s"])
+    print(json.dumps({"stream_rmat_s20_ef8_one_update_profiled": prof, "card": smi}))
     mean_dense = {k: statistics.fmean(r[k] for r in dense_rows) for k in fields
                   if k != "library_ms"}
     mean_bucketed = {k: statistics.fmean(r[k] for r in bucket_rows) for k in fields}
@@ -1183,7 +1528,8 @@ def main():
             "flat rmat_s20_ef8": launches, "flat grid_1024x1024": launches_grid,
             **{f"coarsen {k}": v["segment_min_flat"] for k, v in coarsen_launches.items()},
             "entry points (one AS round for the dense kernel's p)":
-                entry_launches["segment_min_flat"]},
+                entry_launches["segment_min_flat"],
+            **stream_launches(stream_a, stream_b, "segment_min_flat")},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
@@ -1203,8 +1549,9 @@ def main():
         "source": "src/repro_torch/kernels/csrc/segment_min_sorted.cu",
         "replaces": "src/repro/kernels/segment_min_sorted.py:117",
         "launches": coarsen_launches["rmat_s19_ef8"]["segment_min_sorted"],
-        "launches_by_path": {f"coarsen {k}": v["segment_min_sorted"]
-                             for k, v in coarsen_launches.items()},
+        "launches_by_path": {**{f"coarsen {k}": v["segment_min_sorted"]
+                                for k, v in coarsen_launches.items()},
+                             **stream_launches(stream_a, stream_b, "segment_min_sorted")},
         "matches_plain": True,
         "max_abs_err": max_err_sorted,
         "ms": mean_sorted["kernel_ms"],

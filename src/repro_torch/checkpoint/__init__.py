@@ -1,0 +1,6 @@
+from repro_torch.checkpoint.checkpoint import (
+    save_checkpoint,
+    restore_checkpoint,
+    latest_step,
+    wait_for_saves,
+)

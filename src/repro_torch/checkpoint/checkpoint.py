@@ -1,0 +1,118 @@
+"""Atomic checkpoints with async save (counterpart of ``repro.checkpoint``).
+
+- Saves are atomic: write to ``step_<n>.tmp/``, then rename to
+  ``step_<n>/`` with a ``DONE`` marker, so a crash mid-save never
+  corrupts the latest restorable state.
+- Async: the device→host copy happens on the caller's thread; the
+  serialization runs on a background thread; ``wait_for_saves`` joins.
+- The on-disk layout is the reference's (``arrays.npz``, ``meta.json``,
+  ``DONE``), and every array is stored under the name
+  ``jax.tree_util.tree_flatten_with_path`` gives its path: a checkpoint
+  written by either package restores in the other.
+
+A tree is nested dicts (keys sorted, as JAX sorts them), lists, tuples
+and named tuples; ``None`` and empty containers hold no leaves; anything
+else is a leaf (a torch tensor, a numpy array or a scalar), saved from
+the host and restored as numpy. There is no mesh here, so restore takes
+no shardings.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+
+from repro_torch.graphs.structures import host_array
+
+_PENDING: list[threading.Thread] = []
+
+
+def _children(node):
+    """``[(path entry, child)]`` of a container node, or ``None`` for a leaf.
+    The entries print as JAX's key types do: ``['k']``, ``[i]``, ``.name``."""
+    if isinstance(node, dict):
+        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
+    if isinstance(node, (list, tuple)):
+        return [(f"[{i}]", c) for i, c in enumerate(node)]
+    if node is None:
+        return []
+    return None
+
+
+def _leaves(tree, prefix=()):
+    """``[(path name, leaf)]`` in JAX's flattening order."""
+    kids = _children(tree)
+    if kids is None:
+        return [("/".join(prefix), tree)]
+    return [item for entry, c in kids for item in _leaves(c, prefix + (entry,))]
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with its leaves drawn in order from ``leaves``."""
+    kids = _children(tree)
+    if kids is None:
+        return next(leaves)
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_rebuild(c, leaves) for _, c in kids))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(c, leaves) for c in tree)
+    return None
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, async_save: bool = True):
+    os.makedirs(ckpt_dir, exist_ok=True)
+    # Pull to host synchronously (cheap vs serialization), serialize async.
+    arrays = {name: host_array(leaf) for name, leaf in _leaves(tree)}
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    tmp = final + ".tmp"
+
+    def write():
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"step": step}, f)
+        with open(os.path.join(tmp, "DONE"), "w") as f:
+            f.write("ok")
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+
+    if async_save:
+        t = threading.Thread(target=write, daemon=True)
+        t.start()
+        _PENDING.append(t)
+    else:
+        write()
+
+
+def wait_for_saves():
+    while _PENDING:
+        _PENDING.pop().join()
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            if os.path.exists(os.path.join(ckpt_dir, name, "DONE")):
+                steps.append(int(name.split("_")[1]))
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, target: Any):
+    """``target`` supplies the tree structure (values ignored); every leaf
+    comes back as a numpy array with its stored dtype."""
+    path = os.path.join(ckpt_dir, f"step_{step:09d}", "arrays.npz")
+    with np.load(path) as data:
+        leaves = [data[name] for name, _ in _leaves(target)]
+    return _rebuild(target, iter(leaves))

@@ -1,8 +1,9 @@
 # Solver API of the port: declarative SolveSpec → resolve → plan →
-# SolveReport. The flat and coarsen engines are registered so far.
+# SolveReport. The flat, coarsen and stream engines are registered so far.
 #
 #     from repro_torch.solve import SolveSpec, plan
 #     report = plan(graph, SolveSpec()).solve()
+#     p = plan(n, SolveSpec(mode="stream"), device="cpu"); p.update(u, v, w)
 from repro_torch.solve.report import SolveReport, report_from_msf_result
 from repro_torch.solve.spec import ResolvedSpec, SolveSpec
 from repro_torch.solve.planner import (

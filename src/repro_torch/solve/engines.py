@@ -1,15 +1,19 @@
-"""Built-in engines behind ``repro_torch.solve.plan``: ``mode="flat"`` and
-``mode="coarsen"`` are ported so far. Builders receive a *resolved* spec
-— every backend choice is already concrete; engines never auto-detect
-(the coarsen levels resolve their pack32 regime per run, as in the
+"""Built-in engines behind ``repro_torch.solve.plan``: ``mode="flat"``,
+``mode="coarsen"`` and ``mode="stream"`` are ported so far. Builders
+receive a *resolved* spec — every backend choice is already concrete;
+engines never auto-detect (the coarsen levels resolve their pack32 regime
+per run, and the stream engine tracks it per batch, as in the
 reference)."""
 from __future__ import annotations
 
+import numpy as np
+
 from repro_torch.coarsen.engine import CoarsenMSF
 from repro_torch.core.msf import run_flat
+from repro_torch.graphs.structures import host_array
 from repro_torch.solve.planner import register_engine
 from repro_torch.solve.report import SolveReport, report_from_msf_result
-from repro_torch.solve.spec import ResolvedSpec
+from repro_torch.solve.spec import ResolvedSpec, _stream_n
 
 
 class _FlatEngine:
@@ -66,3 +70,99 @@ def _build_coarsen(target, rs: ResolvedSpec, mesh):
 
 
 register_engine("coarsen", _build_coarsen, cacheable=True)
+
+
+class _StreamPlanEngine:
+    def __init__(self, n: int, rs: ResolvedSpec):
+        # lazy: repro_torch.stream.engine imports this package's spec module
+        from repro_torch.stream.engine import StreamEngine
+
+        s = rs.spec
+        self.engine = StreamEngine(
+            n,
+            batch_capacity=s.batch_capacity,
+            adaptive_capacity=s.adaptive_capacity,
+            min_capacity=s.min_capacity,
+            compact_trigger=s.compact_trigger,
+            pack=s.pack,  # None = per-batch auto, tracked by the engine
+            segmin=s.segmin or "auto",
+            coarsen=rs.coarsen,
+            coarsen_threshold=s.coarsen_threshold,
+            reservoir_capacity=s.reservoir_capacity,
+            reservoir_per_component=s.reservoir_per_component,
+            exact_deletes=s.exact_deletes,
+            variant=s.variant,
+            shortcut=rs.shortcut,
+            capacity=s.capacity,
+            device=rs.backend,
+        )
+        self._service = None
+        self._last = None  # most recent UpdateStats/DeleteStats
+
+    # -- reports --------------------------------------------------------
+
+    def _report(self, iterations: int = 0) -> SolveReport:
+        eng = self.engine
+        snap = eng.snapshots.acquire()
+        st = eng.last_coarsen_stats
+        gid = eng.forest_gids()
+        return SolveReport(
+            mode="stream",
+            weight=float(eng.weight),
+            msf_eids=np.asarray(gid, np.int32),
+            parent=host_array(snap.parent),
+            n_msf_edges=int(len(gid)),
+            iterations=int(iterations),
+            levels=tuple(st.levels) if st is not None else (),
+            host_roundtrips=0,
+            recompiles=int(eng.recompiles),
+            raw=self._last,
+            stale=bool(snap.stale),
+            n_unhealed=int(eng.unhealed),
+        )
+
+    # -- engine protocol ------------------------------------------------
+
+    def solve(self, target) -> SolveReport:
+        """Report the current forest state (no recompute)."""
+        return self._report()
+
+    def update(self, u, v, w) -> SolveReport:
+        stats = self.engine.insert_batch(u, v, w)
+        self._last = stats
+        return self._report(iterations=stats.iterations)
+
+    def delete(self, u, v) -> SolveReport:
+        self._last = self.engine.delete_batch(u, v)
+        return self._report()
+
+    def compact(self) -> SolveReport:
+        stats = self.engine.compact()
+        self._last = stats
+        return self._report(iterations=stats.iterations)
+
+    def recertify(self, u, v, w) -> SolveReport:
+        stats = self.engine.recertify(u, v, w)
+        self._last = stats
+        return self._report(iterations=stats.iterations)
+
+    @property
+    def service(self):
+        """The shared :class:`~repro_torch.stream.service.QueryService` over
+        this engine's snapshot store — the read seam a serving tier
+        batches through."""
+        if self._service is None:
+            from repro_torch.stream.service import QueryService
+
+            self._service = QueryService(self.engine.snapshots)
+        return self._service
+
+    def query(self, u, v):
+        return self.service.connected(u, v)
+
+
+def _build_stream(target, rs: ResolvedSpec, mesh):
+    return _StreamPlanEngine(_stream_n(target), rs)
+
+
+register_engine("stream", _build_stream, cacheable=False)

@@ -6,10 +6,14 @@ shape, mesh) key up in a bounded per-process cache, and wraps the cached
 engine in a cheap :class:`Plan` handle:
 
     report = plan(graph, SolveSpec()).solve()
+    p = plan(n, SolveSpec(mode="stream"))   # on the card; device="cpu" there
+    p.update(u, v, w)                       # stream mode only
+    p.query(u, v)                           # stream mode only
 
 Engines are target-free: the cache stores machinery, never the target's
-tensors. ``mode="flat"`` and ``mode="coarsen"`` are registered in the
-port so far; the other built-in modes, ``obs`` and ``tuning`` raise
+tensors. Stream plans are stateful (they own a forest) and are not
+cached. ``mode="flat"``, ``"coarsen"`` and ``"stream"`` are registered in
+the port so far; ``"dist"``, ``obs`` and ``tuning`` raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -20,6 +24,7 @@ from collections import OrderedDict
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
+import torch
 
 from repro_torch.solve import spec as _spec_mod
 from repro_torch.solve.report import SolveReport
@@ -29,7 +34,6 @@ PLAN_CACHE_MAXSIZE = 64
 
 #: Built-in modes without a port yet, and where the ROADMAP schedules them.
 _NOT_PORTED = {
-    "stream": "ROADMAP Queue 1 item 9",
     "dist": "ROADMAP Queue 1 item 12",
 }
 
@@ -111,11 +115,17 @@ def clear_plan_cache() -> None:
 # the compiler
 # ---------------------------------------------------------------------------
 
-def plan(target, spec: SolveSpec | None = None, *, mesh=None, **overrides) -> "Plan":
-    """Compile ``spec`` against ``target`` (a port ``Graph``) into a
-    reusable :class:`Plan`. Keyword ``overrides`` are folded into the spec
-    (``plan(g, pack=False)``). The plan runs on the device where the
-    graph's tensors live."""
+def plan(target, spec: SolveSpec | None = None, *, mesh=None, device=None,
+         **overrides) -> "Plan":
+    """Compile ``spec`` against ``target`` into a reusable :class:`Plan`.
+
+    ``target``: a port ``Graph`` (flat / coarsen), or an ``int`` vertex
+    count or ``Graph`` (stream — only ``n`` is read). Keyword
+    ``overrides`` are folded into the spec (``plan(g, pack=False)``). The
+    plan runs on the device where a graph's tensors live; for a target
+    without tensors, on the type of ``device`` (``None`` = ``"cuda"``,
+    which raises without a card once an engine needs it).
+    """
     if spec is None:
         spec = SolveSpec(**overrides)
     elif overrides:
@@ -135,7 +145,9 @@ def plan(target, spec: SolveSpec | None = None, *, mesh=None, **overrides) -> "P
             f"obs={spec.obs!r}: observability is not ported yet "
             f"(ROADMAP Queue 1 item 11); use obs='off'"
         )
-    resolved = spec.resolve(target, mesh=mesh)
+    on_graph = isinstance(getattr(target, "src", None), torch.Tensor)
+    backend = None if device is None or on_graph else torch.device(device).type
+    resolved = spec.resolve(target, backend=backend, mesh=mesh)
     engine = None
     key = None
     if edef.cacheable:
@@ -167,7 +179,23 @@ class Plan:
 
     @property
     def engine(self):
-        return self._engine
+        """The engine-native object (stream mode: the ``StreamEngine`` —
+        ``forest_edges()``, ``union_edge_capacity``, ...)."""
+        return getattr(self._engine, "engine", self._engine)
+
+    @property
+    def service(self):
+        """Stream mode: the engine's shared
+        :class:`~repro_torch.stream.service.QueryService` — reads from the
+        published snapshot store, safe to call from any thread while the
+        single writer applies ``update()``/``delete()``."""
+        svc = getattr(self._stream(), "service", None)
+        if svc is None:
+            raise ValueError(
+                f"service is a stream-mode surface; this plan's mode "
+                f"is {self.mode!r}"
+            )
+        return svc
 
     @property
     def cost(self):
@@ -180,6 +208,40 @@ class Plan:
         ``parent0=`` (array-like, moved to the graph's device) for warm
         starts."""
         return self._engine.solve(self.target, *args, **kw)
+
+    # -- stream-mode surfaces -------------------------------------------
+
+    def _stream(self):
+        if not hasattr(self._engine, "update"):
+            raise ValueError(
+                f"update()/query() are stream-mode surfaces; this plan's "
+                f"mode is {self.mode!r}"
+            )
+        return self._engine
+
+    def update(self, u, v, w) -> SolveReport:
+        """Stream mode: apply one batch of edge insertions."""
+        return self._stream().update(u, v, w)
+
+    def delete(self, u, v) -> SolveReport:
+        """Stream mode: delete a batch of edges (exact replacement-edge
+        search by default; tombstones under ``exact_deletes=False``)."""
+        return self._stream().delete(u, v)
+
+    def recertify(self, u, v, w) -> SolveReport:
+        """Stream mode: rebuild forest + reservoir exactly from a
+        caller-supplied surviving edge multiset — the recovery path when
+        ``SolveReport.n_unhealed > 0`` after reservoir exhaustion."""
+        return self._stream().recertify(u, v, w)
+
+    def query(self, u, v):
+        """Stream mode: batched connectivity queries against the latest
+        published snapshot; returns a bool array."""
+        return self._stream().query(u, v)
+
+    def compact(self) -> SolveReport:
+        """Stream mode: drop tombstones and rebuild the forest."""
+        return self._stream().compact()
 
     def __repr__(self):
         return (

@@ -2,8 +2,8 @@
 
 ``SolveSpec`` is a frozen, hashable description of *which* MSF engine to
 run (``mode``) and *how* (backend knobs). It has the fields and static
-validation of ``repro.solve.spec.SolveSpec``; ``mode="flat"`` and
-``mode="coarsen"`` have engines in the port so far
+validation of ``repro.solve.spec.SolveSpec``; ``mode="flat"``,
+``mode="coarsen"`` and ``mode="stream"`` have engines in the port so far
 (``repro_torch.solve.engines``).
 
 This module is also the single home of the backend auto-detect rules.

@@ -1,5 +1,5 @@
 """Tests of the port that need the card (marker ``gpu``): the CUDA kernels
-against their plain versions, and the flat and coarsen paths,
+against their plain versions, and the flat, coarsen and stream paths,
 connectivity and SSSP on the card against the CPU. Elsewhere they skip. Run them on an H100 with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -255,3 +255,39 @@ def test_connectivity_and_sssp_on_card_match_cpu(card):
             assert torch.equal(x.cpu(), y)
         (da, ia), (db, ib) = sssp(gc, 0), sssp(gp, 0)
         assert ia == ib and torch.equal(da.cpu(), db)
+
+
+@pytest.mark.parametrize("coarsen", [False, True])
+def test_stream_path_on_card_matches_cpu(card, coarsen):
+    """One insert / delete / compact / recertify trace through a stream
+    plan on the card and one on the CPU: every report and the durable
+    state identical after every op. Without coarsening each union solve
+    launches the flat kernel once per AS round; with a low threshold the
+    levels launch the sorted kernel too."""
+    from _torch_util import StreamTrace, assert_same_state, assert_same_stream_report
+    from repro_torch.coarsen import CoarsenConfig
+    from repro_torch.kernels import ops
+    from repro_torch.solve import SolveSpec, plan
+
+    n, cap = 512, 64
+    extra = dict(coarsen=CoarsenConfig(cutoff=8), coarsen_threshold=128) if coarsen else {}
+    spec = SolveSpec(mode="stream", batch_capacity=cap, reservoir_capacity=24,
+                     reservoir_per_component=4, **extra)
+    pc, pp = plan(n, spec), plan(n, spec, device="cpu")
+    assert pc.engine.device.type == "cuda" and pp.engine.device.type == "cpu"
+    trace = StreamTrace(n, cap, seed=5)
+    ops.segment_min_flat.launches = ops.segment_min_sorted.launches = 0
+    for i in range(30):
+        op, args = trace.insert() if i < 3 else trace.next_op()
+        surface = {"insert": "update"}.get(op, op)
+        before = ops.segment_min_flat.launches
+        a = getattr(pc, surface)(*args)
+        torch.cuda.synchronize()
+        assert_same_stream_report(getattr(pp, surface)(*args), a)
+        assert_same_state(pp.engine.state_dict(), pc.engine.state_dict())
+        if not coarsen and surface != "delete":
+            assert ops.segment_min_flat.launches - before == a.iterations
+        q = trace.rng.integers(0, n, (2, 100))
+        np.testing.assert_array_equal(pc.query(*q), pp.query(*q))
+    assert ops.segment_min_flat.launches > 0
+    assert (ops.segment_min_sorted.launches > 0) == coarsen

@@ -132,7 +132,8 @@ def test_spec_static_validation(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="coarsen", obs="trace"), "item 11"), (dict(mode="stream"), "item 9"),
+    (dict(mode="coarsen", obs="trace"), "item 11"),
+    (dict(mode="stream", obs="metrics"), "item 11"),
     (dict(mode="dist"), "item 12"), (dict(obs="trace"), "item 11"),
     (dict(obs="metrics"), "item 11"), (dict(tuning="db"), "item 11"),
 ])
@@ -154,7 +155,7 @@ def test_plan_cache_and_registry(monkeypatch):
     p3 = tsolve.plan(g1, pack=False)
     assert p3.engine is not p1.engine and p3.spec.pack is False
     assert p1.cost is None and "flat" in repr(p1)
-    assert tsolve.registered_modes() == ("flat", "coarsen")
+    assert tsolve.registered_modes() == ("flat", "coarsen", "stream")
     tsolve.clear_plan_cache()
     assert tsolve.plan_cache_info()[0] == 0
     # a registered mode becomes a legal spec mode and plans through its builder
@@ -168,5 +169,5 @@ def test_plan_cache_and_registry(monkeypatch):
             return target.n
 
     tsolve.register_engine("echo", lambda target, rs, mesh: _Echo())
-    assert tsolve.registered_modes() == ("flat", "coarsen", "echo")
+    assert tsolve.registered_modes() == ("flat", "coarsen", "stream", "echo")
     assert tsolve.plan(g1, mode="echo").solve() == g1.n
