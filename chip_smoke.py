@@ -71,6 +71,30 @@ Phases:
      trip into a fresh engine; insert latency (median, p95), host syncs
      and the host stages of one update, query throughput (the device's
      busy time over one more update is profiled last, in phase 7);
+  6g. serving: `python -m repro_torch.launch.serve_graph --serve` on phase
+     5's graph (R-MAT scale 20, edge factor 8, seed 0, batch capacity
+     131,072, warmed with the first eighth of the stream) in a
+     subprocess, driven with the port's ServeClient: insert frames of
+     131,072 pairs of the same stream while 4 client threads pipeline
+     query frames of 4,096 points of all three query ops, one delete
+     frame of 2^14 forest edges (edges to degree-1 vertices: bridges, so
+     scipy's forest of the survivors is known), status and metrics; every
+     answer against scipy's components of the prefix its snapshot
+     version names, the weight after the delete against scipy, the
+     server's flat-kernel launches (its kernel.segment_min_flat.launches
+     counter) against the AS rounds of the same writes replayed here;
+     SIGTERM drains it into a checkpoint and a second server restores
+     it: the same version, a bit-identical weight, the same answers;
+     insert latency (client clock: median and maximum of the frames),
+     query e2e latency (the server's
+     serve.e2e_latency_s), queries per second, host syncs per insert;
+  6h. obs on the card: the flat solve of R-MAT scale 20, a coarsen solve
+     of the grid and one stream update with obs off, "metrics" and
+     "trace": identical reports, one msf.round span per AS round, the
+     exported traces accepted by tools/check_trace.py, host syncs per
+     flat solve (40 with obs off and with "metrics"; "trace" adds one
+     explicit sync per msf.round span and one for msf.flat) and median
+     solve times per mode;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -123,6 +147,18 @@ STREAM_B_BATCHES = 32
 # coarsen-assisted.
 STREAM_B_COARSEN_THRESHOLD = 1 << 21
 STREAM_QUERIES = 1 << 14
+# Phase 6g: phase 5's graph served by `serve_graph --serve` in a subprocess,
+# warmed with the first eighth of its stream, then driven over loopback.
+SERVE_BATCH = 131_072
+SERVE_WARM_FRAC = 0.125
+SERVE_INSERT_FRAMES = 6
+SERVE_QUERY_POINTS = 1 << 12
+SERVE_QUERY_THREADS = 4
+SERVE_DELETES = 1 << 14
+# 4 threads x 2 pipelined 4,096-point queries fit the admission queue;
+# a flush fuses at most 4 of them, QueryService's 2^14-point batch limit.
+SERVE_FLAGS = ("--micro-batch", str(1 << 14), "--queue-cap", str(1 << 16))
+SERVE_START_TIMEOUT_S = 600
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
 # dense n x n float32 adjacency (1 GiB and 64 MiB).
 DENSE_GRAPHS = {"rmat_s14_ef8": dict(scale=14, edge_factor=8, seed=1),
@@ -1225,6 +1261,457 @@ def stream_rmat20(g):
     return row, partial(p.update, lo[again], hi[again], w[again])
 
 
+def start_server(args, log_path):
+    """Start ``python -m repro_torch.launch.serve_graph --serve *args`` from
+    the checkout. Returns (process, its stdout lines so far, a queue of
+    the lines to come, the address, the restored version or None)."""
+    import os
+    import queue
+    import re
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p))
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_graph", "--serve", *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=log, text=True)
+    log.close()
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    seen = []
+    deadline = time.monotonic() + SERVE_START_TIMEOUT_S
+    while True:
+        try:
+            line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+        except queue.Empty:
+            proc.kill()
+            fail(f"serve_graph --serve printed no address in {SERVE_START_TIMEOUT_S} s")
+        if line is None:
+            fail(f"serve_graph --serve exited {proc.wait()} before serving: "
+                 f"{Path(log_path).read_text()[-2000:]}")
+        seen.append(line)
+        if line.startswith("# serving tcp://"):
+            restored = re.search(r"restored v(\d+)", line)
+            return proc, seen, lines, line.split()[2], (
+                int(restored.group(1)) if restored else None)
+
+
+def stop_server(proc, lines, log_path) -> list:
+    """SIGTERM (the graceful drain) and wait; the rest of its stdout."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("serve_graph --serve did not drain within 300 s of SIGTERM")
+    check(rc == 0, f"serve_graph --serve exited {rc} after SIGTERM: "
+                   f"{Path(log_path).read_text()[-2000:]}")
+    out = []
+    while (line := lines.get(timeout=60)) is not None:
+        out.append(line)
+    return out
+
+
+def counter(client, name: str) -> int:
+    """A counter of the server's obs metrics snapshot (0 before its first
+    increment)."""
+    resp = client.metrics()
+    check(resp["ok"], f"metrics: {resp}")
+    return resp["result"]["metrics"]["counters"].get(name, 0)
+
+
+def check_answer(op, u, v, resp, truth):
+    """One query response against scipy's labels and sizes of the prefix
+    its snapshot version names."""
+    import numpy as np
+
+    labels, sizes = truth
+    check(resp["ok"], f"serve: {op} failed: {resp.get('error')}")
+    r = resp["result"]
+    if op == "connected":
+        ok = np.array_equal(np.asarray(r["connected"]), labels[u] == labels[v])
+    elif op == "component_size":
+        ok = np.array_equal(np.asarray(r["size"]), sizes[u])
+    else:  # a label is a vertex of u's component, one label per component
+        comp = np.asarray(r["component"], np.int64)
+        ok = (np.array_equal(labels[comp], labels[u])
+              and len(np.unique(comp)) == len(np.unique(labels[u])))
+    check(ok, f"serve: {op} answers at v{resp['snapshot_version']} != scipy")
+
+
+def json_times(n: int, cap: int, reps: int = 5) -> dict:
+    """Host seconds (median of ``reps``) to encode and decode, with the
+    serve/v1 codec, a 4,096-point ``connected`` request and its response,
+    and an insert frame of ``cap`` pairs: what the wire adds to a query
+    and an insert, both ends together."""
+    import numpy as np
+
+    from repro_torch.serve import protocol as P
+
+    rng = np.random.default_rng(0)
+    u, v = rng.integers(0, n, (2, SERVE_QUERY_POINTS))
+    frames = {
+        "query_request": {"op": "connected", "id": 1, "u": u.tolist(), "v": v.tolist()},
+        "query_response": P.response(1, "connected",
+                                     {"connected": (u % 2 == v % 2).tolist()}),
+        "insert_request": {"op": "insert", "id": 2, "u": rng.integers(0, n, cap).tolist(),
+                           "v": rng.integers(0, n, cap).tolist(),
+                           "w": rng.integers(1, 256, cap).astype(float).tolist()},
+    }
+    out = {}
+    for name, obj in frames.items():
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            P.decode_payload(P.encode_frame(obj)[P.HEADER_SIZE:])
+            times.append(time.perf_counter() - t0)
+        out[name] = statistics.median(times)
+    return out
+
+
+def serve_path(g, cfg=RMAT, device="cuda", cap=SERVE_BATCH, deletes=SERVE_DELETES) -> dict:
+    """Phase 6g: ``serve_graph --serve`` on ``g`` (the R-MAT of ``cfg``) in
+    a subprocess, driven over loopback, checked against scipy and against
+    the same writes replayed in this process; SIGTERM, and a restart from
+    the drain checkpoint."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.serve import ServeClient
+    from repro_torch.solve import SolveSpec, plan
+    from repro_torch.stream.persist import latest_stream_step
+
+    n = g.n
+    lo, hi, w = undirected_stream(g, cfg["seed"])
+    warm = int(len(lo) * SERVE_WARM_FRAC)
+    ends = [warm + i * cap for i in range(SERVE_INSERT_FRAMES + 2)]
+    check(ends[-1] <= len(lo), "serve: the stream is too short for the insert frames")
+    truth, prefix_of = {}, {}  # version -> (labels, sizes); version -> prefix end
+
+    def scipy_at(version):
+        if version not in truth:
+            end = prefix_of[version]
+            _, labels, sizes = scipy_forest(lo[:end], hi[:end], w[:end], n)
+            truth[version] = (labels, sizes)
+        return truth[version]
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    args = ["--scale", str(cfg["scale"]), "--edge-factor", str(cfg["edge_factor"]),
+            "--seed", str(cfg["seed"]), "--batch-capacity", str(cap),
+            "--warm-frac", str(SERVE_WARM_FRAC), "--checkpoint-dir", str(tmp / "ckpt"),
+            "--metrics-out", str(tmp / "metrics.json"), "--device", device, *SERVE_FLAGS]
+    row = {"n": n, "warm_edges": warm, "insert_frames": SERVE_INSERT_FRAMES,
+           "insert_frame_pairs": cap, "query_points": SERVE_QUERY_POINTS,
+           "query_threads": SERVE_QUERY_THREADS, "deletes": deletes}
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        proc, out1, lines1, addr, restored = start_server(args, tmp / "server1.log")
+        procs.append(proc)
+        row["server_start_s"] = time.perf_counter() - t0
+        check(restored is None, "serve: the first server restored a checkpoint")
+        with ServeClient(addr, timeout=300) as c:
+            st = c.status(check=True)
+            v_warm = st["snapshot_version"]
+            prefix_of[v_warm] = warm
+            weight_warm, _, _ = scipy_forest(lo[:warm], hi[:warm], w[:warm], n)
+            check(st["result"]["weight"] == weight_warm,
+                  f"serve: warm weight {st['result']['weight']} != scipy {weight_warm}")
+
+            # the same writes replayed here, for the AS rounds they take
+            rp = plan(n, SolveSpec(mode="stream", batch_capacity=cap), device=device)
+            for at in range(0, warm, cap):
+                rp.update(lo[at:min(at + cap, warm)], hi[at:min(at + cap, warm)],
+                          w[at:min(at + cap, warm)])
+            check(rp.engine.version == v_warm and rp.engine.weight == weight_warm,
+                  "serve: the replayed warm-up differs from the server's")
+
+            answers, errors = [], []
+            stop = threading.Event()
+
+            def reader(seed):
+                rng = np.random.default_rng(seed)
+                kinds = ("connected", "component_id", "component_size")
+                try:
+                    with ServeClient(addr, timeout=300) as rc:
+                        pending, i = [], 0
+                        while not stop.is_set() or i < 3:
+                            u, v = rng.integers(0, n, (2, SERVE_QUERY_POINTS))
+                            op = kinds[i % 3]
+                            i += 1
+                            fields = {"u": u.tolist()}
+                            if op == "connected":
+                                fields["v"] = v.tolist()
+                            pending.append((op, u, v, rc.submit(op, **fields)))
+                            if len(pending) == 2:  # two frames in flight
+                                op_, u_, v_, f = pending.pop(0)
+                                answers.append((op_, u_, v_, f.result(timeout=300)))
+                        for op_, u_, v_, f in pending:
+                            answers.append((op_, u_, v_, f.result(timeout=300)))
+                except Exception as e:  # reported below, the phase fails
+                    errors.append(repr(e))
+
+            launches0 = counter(c, "kernel.segment_min_flat.launches")
+            readers = [threading.Thread(target=reader, args=(10 + k,))
+                       for k in range(SERVE_QUERY_THREADS)]
+            t_q = time.perf_counter()
+            for t in readers:
+                t.start()
+            lat, replay_iters = [], 0
+            reset_counts()
+
+            def insert_frame(i):
+                """Frame i to the server and to the replay; its latency."""
+                nonlocal replay_iters
+                sl = slice(ends[i], ends[i + 1])
+                t0 = time.perf_counter()
+                r = c.insert(lo[sl], hi[sl], w[sl])
+                dt = time.perf_counter() - t0
+                check(r["ok"], f"serve: insert failed: {r.get('error')}")
+                prefix_of[r["result"]["version"]] = ends[i + 1]
+                with obs.enabled("metrics"):  # the server's mode
+                    if i == SERVE_INSERT_FRAMES - 1:
+                        reps = []
+                        row["host_syncs_per_insert"] = count_syncs(
+                            lambda: reps.append(rp.update(lo[sl], hi[sl], w[sl])))
+                        rep = reps[0]
+                    else:
+                        rep = rp.update(lo[sl], hi[sl], w[sl])
+                replay_iters += rep.iterations
+                check(rep.weight == r["result"]["weight"]
+                      and rep.raw.version == r["result"]["version"]
+                      and rep.raw.n_new == r["result"]["n_new"],
+                      f"serve: insert {i} differs from its replay")
+                return dt
+
+            for i in range(SERVE_INSERT_FRAMES):
+                lat.append(insert_frame(i))
+            stop.set()
+            for t in readers:
+                t.join(timeout=600)
+            row["query_window_s"] = time.perf_counter() - t_q
+            check(not errors and all(not t.is_alive() for t in readers),
+                  f"serve: query threads failed: {errors}")
+            # one more frame with no query in flight: the insert alone
+            row["insert_latency_quiet_s"] = insert_frame(SERVE_INSERT_FRAMES)
+            replay_launches = read_counts()["segment_min_flat"]
+            launches1 = counter(c, "kernel.segment_min_flat.launches")
+            row["insert_launches"] = launches1 - launches0
+            row["insert_as_rounds"] = replay_iters
+            check(row["insert_launches"] == replay_iters == replay_launches,
+                  f"serve: {row['insert_launches']} flat launches in the server, "
+                  f"{replay_launches} in the replay, for {replay_iters} AS rounds")
+            for op, u, v, resp in answers:
+                check(resp["snapshot_version"] in prefix_of,
+                      f"serve: an answer at unknown version {resp['snapshot_version']}")
+                check_answer(op, u, v, resp, scipy_at(resp["snapshot_version"]))
+            row["query_frames"] = len(answers)
+            row["versions_answered"] = sorted({a[3]["snapshot_version"] for a in answers})
+            row["queries_per_s"] = len(answers) * SERVE_QUERY_POINTS / row["query_window_s"]
+            lat.sort()
+            row["insert_latency_median_s"] = statistics.median(lat)
+            row["insert_latency_max_s"] = lat[-1]  # of SERVE_INSERT_FRAMES: too few for a p95
+
+            # one delete frame: edges to degree-1 vertices, forest edges and
+            # bridges, so the survivors' forest is the old one without them
+            end = ends[-1]
+            deg = np.bincount(lo[:end], minlength=n) + np.bincount(hi[:end], minlength=n)
+            leaf = np.flatnonzero((deg[lo[:end]] == 1) | (deg[hi[:end]] == 1))
+            check(len(leaf) >= deletes, f"serve: only {len(leaf)} leaf edges")
+            gone = np.random.default_rng(3).choice(leaf, deletes, replace=False)
+            keep = np.ones(end, bool)
+            keep[gone] = False
+            reset_counts()
+            t0 = time.perf_counter()
+            d = c.delete(lo[gone], hi[gone])
+            row["delete_s"] = time.perf_counter() - t0
+            with obs.enabled("metrics"):
+                rep_d = rp.delete(lo[gone], hi[gone])
+            replay_del = read_counts()["segment_min_flat"]
+            check(d["ok"] and d["result"]["n_deleted"] == deletes,
+                  f"serve: delete: {d.get('result') or d.get('error')}")
+            weight_s, labels_s, sizes_s = scipy_forest(lo[:end][keep], hi[:end][keep],
+                                                       w[:end][keep], n)
+            check(d["result"]["weight"] == weight_s == rep_d.weight,
+                  f"serve: weight after the delete {d['result']['weight']} != scipy {weight_s}")
+            row["delete_launches"] = counter(c, "kernel.segment_min_flat.launches") - launches1
+            check(row["delete_launches"] == replay_del,
+                  f"serve: the delete's flat launches {row['delete_launches']} != its "
+                  f"replay's {replay_del}")
+            v_del = d["result"]["version"]
+            truth[v_del] = (labels_s, sizes_s)
+            final_q = []
+            qu, qv = np.random.default_rng(4).integers(0, n, (2, SERVE_QUERY_POINTS))
+            for op in ("connected", "component_id", "component_size"):
+                resp = c.call(op, u=qu.tolist(), **({"v": qv.tolist()} if op == "connected"
+                                                    else {}))
+                check(resp["snapshot_version"] == v_del, "serve: a query after the delete "
+                      "did not see it")
+                check_answer(op, qu, qv, resp, truth[v_del])
+                final_q.append((op, resp["result"]))
+            st = c.status(check=True)["result"]
+            m = c.metrics(check=True)["result"]["metrics"]
+        e2e = m["histograms"]["serve.e2e_latency_s"]
+        for name in ("span.solve.stream.update", "span.stream.update",
+                     "span.stream.union_solve", "span.stream.query"):
+            h = m["histograms"][name]
+            row[f"server_{name[5:]}_s"] = {k: h[k] for k in ("count", "p50", "max")}
+        row["json_s_per_frame"] = json_times(n, cap)
+        row.update(
+            query_e2e_p50_s=e2e["p50"], query_e2e_p95_s=e2e["p95"], query_e2e_p99_s=e2e["p99"],
+            query_e2e_count=e2e["count"],
+            batch_occupancy=m["histograms"]["serve.batch_occupancy"],
+            served_queries=st["served_queries"], served_writes=st["served_writes"])
+        check(st["weight"] == weight_s, "serve: status weight after the delete != scipy")
+
+        out1 += stop_server(proc, lines1, tmp / "server1.log")
+        check(f"# drained at v{v_del} weight={weight_s:.0f}" in out1,
+              f"serve: drain line missing: {out1[-3:]}")
+        check(latest_stream_step(str(tmp / "ckpt")) == v_del,
+              "serve: the drain checkpoint is not at the last version")
+        drained = json.loads((tmp / "metrics.json").read_text())
+        check(drained["counters"]["serve.writes"] == SERVE_INSERT_FRAMES + 2,
+              "serve: the drained metrics snapshot misses writes")
+
+        t0 = time.perf_counter()
+        proc2, out2, lines2, addr2, restored2 = start_server(args, tmp / "server2.log")
+        procs.append(proc2)
+        row["restart_s"] = time.perf_counter() - t0
+        check(restored2 == v_del, f"serve: restored v{restored2}, drained at v{v_del}")
+        with ServeClient(addr2, timeout=300) as c2:
+            st2 = c2.status(check=True)
+            check(st2["snapshot_version"] == v_del and st2["result"]["restored_version"] == v_del
+                  and st2["result"]["weight"] == st["weight"],
+                  "serve: the restarted server's state differs from the drained one")
+            for op, result in final_q:
+                resp = c2.call(op, u=qu.tolist(), **({"v": qv.tolist()} if op == "connected"
+                                                     else {}))
+                check(resp["ok"] and resp["result"] == result
+                      and resp["snapshot_version"] == v_del,
+                      f"serve: {op} answers differ after the restart")
+        stop_server(proc2, lines2, tmp / "server2.log")
+        row["restored_version"] = restored2
+        row["weight_after_delete"] = weight_s
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return row
+
+
+def trace_check(path, names) -> None:
+    """tools/check_trace.py over an exported trace, as a subprocess."""
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"), str(path),
+                           *names], capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"check_trace {path}: {proc.stderr.strip()}")
+
+
+def same_solve(a, b) -> bool:
+    """Two reports equal in every field but the obs timings; ``raw`` holds
+    tensors (an MSFResult) or plain values (a stream update's stats)."""
+    import torch
+
+    if not all(torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(a.raw, b.raw)):
+        return False
+    return same_report(a._replace(timings={}, raw=()), b._replace(timings={}, raw=()))
+
+
+def obs_path(g_flat, g_coarsen, device="cuda") -> dict:
+    """Phase 6h: the flat solve of ``g_flat``, a coarsen solve of
+    ``g_coarsen`` and one stream update, each with obs off, "metrics" and
+    "trace": identical reports, the spans, exported traces through
+    tools/check_trace.py, host syncs and solve times per mode."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.solve import SolveSpec, plan
+
+    modes = ("off", "metrics", "trace")
+    row = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    try:
+        # flat
+        reps = {}
+        for m in modes:
+            obs.reset()
+            reset_counts()
+            reps[m] = plan(g_flat, SolveSpec(obs=m)).solve()
+            if m == "trace":
+                rounds = [e for e in obs.trace_events() if e[0] == "msf.round"]
+                check(len(rounds) == reps[m].iterations,
+                      f"obs: {len(rounds)} msf.round spans for {reps[m].iterations} rounds")
+                check(read_counts()["segment_min_flat"] == reps[m].iterations or device == "cpu",
+                      "obs: the traced flat solve did not launch the kernel once a round")
+                obs.export_trace(str(tmp / "flat.json"))
+                trace_check(tmp / "flat.json", ["msf.flat", "msf.round", "solve.flat"])
+            check(same_solve(reps["off"], reps[m]), f"obs: flat report with obs={m} differs")
+            check(bool(reps[m].timings) == (m != "off"), f"obs: flat timings with obs={m}")
+        row["flat_rounds"] = reps["off"].iterations
+        row["flat_msf_round_spans"] = len(rounds)
+        row["host_syncs_per_flat_solve"] = {
+            m: count_syncs(plan(g_flat, SolveSpec(obs=m)).solve) for m in modes}
+        syncs = row["host_syncs_per_flat_solve"]
+        check(device == "cpu" or syncs["off"] == 40,
+              f"obs: {syncs['off']} host syncs per flat solve with obs off, not 40")
+        check(device == "cpu" or syncs["metrics"] == syncs["off"]
+              and syncs["trace"] == syncs["off"] + reps["off"].iterations + 1,
+              f"obs: host syncs per flat solve {syncs} for {reps['off'].iterations} rounds")
+        row["flat_solve_median_s"] = solve_times(
+            g_flat, {m: SolveSpec(obs=m) for m in modes})
+        obs.reset()
+
+        # coarsen
+        spec = SolveSpec(mode="coarsen")
+        base = plan(g_coarsen, spec).solve()
+        for m in modes[1:]:
+            obs.reset()
+            rep = plan(g_coarsen, SolveSpec(mode="coarsen", obs=m)).solve()
+            check(same_solve(base, rep), f"obs: coarsen report with obs={m} differs")
+        names = ["coarsen.levels", "coarsen.level", "coarsen.contract", "coarsen.relabel",
+                 "coarsen.filter", "coarsen.residual", "msf.flat", "msf.round", "solve.coarsen"]
+        obs.export_trace(str(tmp / "coarsen.json"))
+        trace_check(tmp / "coarsen.json", names)
+        row["coarsen_levels"] = len(base.levels)
+        row["coarsen_span_names"] = sorted({e[0] for e in obs.trace_events()})
+        obs.reset()
+
+        # one stream update
+        lo, hi, w = undirected_stream(g_flat, RMAT["seed"])
+        k = min(STREAM_B_BATCH, len(lo))
+        ups = {}
+        for m in modes:
+            obs.reset()
+            sp = plan(g_flat.n, SolveSpec(mode="stream", batch_capacity=STREAM_B_BATCH, obs=m),
+                      device=device)
+            ups[m] = sp.update(lo[:k], hi[:k], w[:k])
+            check(same_solve(ups["off"], ups[m]), f"obs: stream report with obs={m} differs")
+        obs.export_trace(str(tmp / "stream.json"))
+        trace_check(tmp / "stream.json", ["solve.stream.update", "stream.update",
+                                          "stream.union_solve", "msf.flat", "msf.round"])
+        row["stream_update_rounds"] = ups["off"].iterations
+    finally:
+        obs.disable()
+        obs.reset()
+        obs.metrics_reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return row
+
+
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
     """Median end-to-end solve seconds of each spec, in turns after one
     warm-up each."""
@@ -1353,19 +1840,33 @@ def coarsen_breakdown(g) -> dict:
 
 
 def count_syncs(fn) -> int:
-    """Host-device synchronisations during ``fn()``, as torch's sync debug
-    mode reports them."""
+    """Host-device synchronisations during ``fn()``: those torch's sync
+    debug mode reports (copies to the host, ``.item()``, ``nonzero``...)
+    plus the explicit ``torch.cuda.synchronize`` calls, which it does not
+    report (an obs span's sync in trace mode)."""
     import warnings
 
     import torch
 
     torch.cuda.synchronize()
+    sync = torch.cuda.synchronize
+    explicit = 0
+
+    def counted(*a, **k):
+        nonlocal explicit
+        explicit += 1
+        return sync(*a, **k)
+
+    torch.cuda.synchronize = counted
     torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        fn()
-    torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize = sync
+    return explicit + sum("synchroniz" in str(w.message) for w in caught)
 
 
 def profile_solve(g, spec=None, top: int = 8) -> dict:
@@ -1465,6 +1966,18 @@ def main():
     print(json.dumps({"stream_rmat_s20_ef8": stream_b, "card": smi}))
     print(f"  phase 6f took {time.perf_counter() - t6f:.1f} s", flush=True)
 
+    phase("6g serving: serve_graph --serve on R-MAT scale 20")
+    t0 = time.perf_counter()
+    serve_row = serve_path(g_rmat)
+    print(json.dumps({"serve_rmat_s20_ef8": serve_row, "card": smi}))
+    print(f"  phase 6g took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("6h obs on the card")
+    t0 = time.perf_counter()
+    obs_row = obs_path(g_rmat, g_grid)
+    print(json.dumps({"obs_on_the_card": obs_row, "card": smi}))
+    print(f"  phase 6h took {time.perf_counter() - t0:.1f} s", flush=True)
+
     phase("7 times")
     per_round = round_times(g_rmat)
     print(json.dumps({"segment_min_flat_per_round_rmat_s20_ef8": per_round, "card": smi}))
@@ -1529,7 +2042,9 @@ def main():
             **{f"coarsen {k}": v["segment_min_flat"] for k, v in coarsen_launches.items()},
             "entry points (one AS round for the dense kernel's p)":
                 entry_launches["segment_min_flat"],
-            **stream_launches(stream_a, stream_b, "segment_min_flat")},
+            **stream_launches(stream_a, stream_b, "segment_min_flat"),
+            "serve rmat_s20_ef8 inserts": serve_row["insert_launches"],
+            "serve rmat_s20_ef8 delete": serve_row["delete_launches"]},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],

@@ -10,8 +10,10 @@
   ``jax.tree_util.tree_flatten_with_path`` gives its path: a checkpoint
   written by either package restores in the other.
 
-A tree is nested dicts (keys sorted, as JAX sorts them), lists, tuples
-and named tuples; ``None`` and empty containers hold no leaves; anything
+A tree is nested dicts, lists, tuples and named tuples; as in JAX, an
+``OrderedDict`` keeps its insertion order and every other dict (a
+``defaultdict`` too) its sorted keys, and restore rebuilds each dict as
+the target's own type (a ``defaultdict`` with its ``default_factory``); ``None`` and empty containers hold no leaves; anything
 else is a leaf (a torch tensor, a numpy array or a scalar), saved from
 the host and restored as numpy. There is no mesh here, so restore takes
 no shardings.
@@ -22,6 +24,7 @@ import json
 import os
 import shutil
 import threading
+from collections import OrderedDict, defaultdict
 from typing import Any, Optional
 
 import numpy as np
@@ -31,11 +34,17 @@ from repro_torch.graphs.structures import host_array
 _PENDING: list[threading.Thread] = []
 
 
+def _dict_keys(node: dict) -> list:
+    """A dict's keys in JAX's flattening order: an ``OrderedDict``'s in
+    insertion order, every other dict's sorted."""
+    return list(node) if isinstance(node, OrderedDict) else sorted(node)
+
+
 def _children(node):
     """``[(path entry, child)]`` of a container node, or ``None`` for a leaf.
     The entries print as JAX's key types do: ``['k']``, ``[i]``, ``.name``."""
     if isinstance(node, dict):
-        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+        return [(f"[{k!r}]", node[k]) for k in _dict_keys(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
@@ -59,7 +68,10 @@ def _rebuild(tree, leaves):
     if kids is None:
         return next(leaves)
     if isinstance(tree, dict):
-        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        items = [(k, _rebuild(tree[k], leaves)) for k in _dict_keys(tree)]
+        if isinstance(tree, defaultdict):
+            return type(tree)(tree.default_factory, items)
+        return type(tree)(items)
     if hasattr(tree, "_fields"):
         return type(tree)(*(_rebuild(c, leaves) for _, c in kids))
     if isinstance(tree, (list, tuple)):

@@ -25,6 +25,14 @@ Invariants:
   is not the (w, eid)-minimum (cycle property);
 - ``label_map`` composes the per-level relabelings, so original-vertex
   component labels are one gather at the end.
+
+Observability, as in the reference: ``coarsen.levels`` and
+``coarsen.residual`` spans around the two halves of a solve, a
+``coarsen.level`` span per level and (unfused) a ``coarsen.filter`` span
+per progressing level; in trace mode only, ``coarsen.contract`` and
+``coarsen.relabel`` spans inside each level (fused: and
+``coarsen.filter``). One code path serves every mode: the trace-only
+spans are no-ops otherwise.
 """
 from __future__ import annotations
 
@@ -33,17 +41,19 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.coarsen.config import CoarsenConfig
-from repro_torch.coarsen.contract import contract_level_und
+from repro_torch.coarsen.contract import ContractResult, hook_rounds, make_und_reduce
 from repro_torch.coarsen.filter import (
     filter_level,
     filter_level_callback,
     filter_level_host,
     front_packed,
 )
-from repro_torch.coarsen.relabel import canonical_minvertex_labels
+from repro_torch.coarsen.relabel import canonical_minvertex_labels, rank_relabel
 from repro_torch.core.msf import MSFResult, flat_msf
 from repro_torch.graphs.structures import IMAX, Graph
+from repro_torch.obs.trace import trace_span
 
 
 def next_pow2(k: int, floor: int = 16) -> int:
@@ -137,6 +147,21 @@ class FusedLevel(NamedTuple):
     label_map: torch.Tensor  # int32 [n0]: original vertex → supervertex id
 
 
+def _contract(lo, hi, w, eid, valid, *, n: int, eid_capacity: int, rounds: int,
+              pack: bool, segmin) -> ContractResult:
+    """:func:`~repro_torch.coarsen.contract.contract_level_und` with its
+    two phases, contract and relabel, under trace-mode spans (the
+    reference's ``_traced_contract``): the same outputs in every mode."""
+    with trace_span("coarsen.contract", n=n, rounds=rounds) as sp:
+        reduce_fn = make_und_reduce(lo, hi, w, eid, valid, n=n, eid_capacity=eid_capacity,
+                                    pack=pack, segmin=segmin)
+        p, weight, msf_eids, n_f = sp.attach(hook_rounds(reduce_fn, n, rounds, lo.device))
+    with trace_span("coarsen.relabel", n=n) as sp:
+        new_ids, n_next = sp.attach(rank_relabel(p))
+    return ContractResult(parent=p, new_ids=new_ids, n_next=n_next, weight=weight,
+                          msf_eids=msf_eids, n_msf_edges=n_f)
+
+
 def fused_level(lo, hi, w, eid, valid, label_map, *, n: int, eid_capacity: int,
                 rounds: int = 2, pack: bool = False, segmin=None, segmin_dedupe=None,
                 dedupe_host: bool = False) -> FusedLevel:
@@ -149,17 +174,19 @@ def fused_level(lo, hi, w, eid, valid, label_map, *, n: int, eid_capacity: int,
     The reference compiles this as one executable; the port runs it
     eagerly, so it differs from the unfused loop only in that the edge
     tensors are sliced, not re-padded, between levels, and the filter runs
-    even on a level that makes no progress.
+    even on a level that makes no progress. In trace mode its contract,
+    relabel and filter phases are spans (the reference's
+    ``_traced_fused_level``).
     """
-    res = contract_level_und(
-        lo, hi, w, eid, valid,
-        n=n, eid_capacity=eid_capacity, rounds=rounds, pack=pack, segmin=segmin,
-    )
-    if dedupe_host:
-        fr = filter_level_callback(lo, hi, w, eid, valid, res.new_ids, n=n)
-    else:
-        fr = filter_level(lo, hi, w, eid, valid, res.new_ids, n=n, pack=pack,
-                          segmin=segmin_dedupe)
+    res = _contract(lo, hi, w, eid, valid, n=n, eid_capacity=eid_capacity, rounds=rounds,
+                    pack=pack, segmin=segmin)
+    with trace_span("coarsen.filter", n=n, host=dedupe_host) as sp:
+        if dedupe_host:
+            fr = filter_level_callback(lo, hi, w, eid, valid, res.new_ids, n=n)
+        else:
+            fr = filter_level(lo, hi, w, eid, valid, res.new_ids, n=n, pack=pack,
+                              segmin=segmin_dedupe)
+        fr = sp.attach(fr)
     return FusedLevel(
         lo=fr.lo, hi=fr.hi, w=fr.w, eid=fr.eid, valid=fr.valid, m_new=fr.m_new,
         new_ids=res.new_ids, n_next=res.n_next, weight=res.weight,
@@ -220,11 +247,13 @@ def _run_levels_fused(graph: Graph, cfg: CoarsenConfig, segmins) -> CoarsenPrelu
     n_cur = graph.n
     while len(stats) < cfg.max_levels and n_cur > cfg.cutoff and m_cur > 0:
         n_pad = next_pow2(n_cur, floor=8)
-        res = fused_level(
-            lo, hi, w, eid, valid, label_map,
-            n=n_pad, eid_capacity=eid_cap, rounds=cfg.rounds_per_level, pack=be.pack,
-            segmin=be.hook, segmin_dedupe=be.dedupe_segmin, dedupe_host=be.dedupe == "host",
-        )
+        with obs.span("coarsen.level", level=len(stats), n=n_cur, m=m_cur) as lsp:
+            res = lsp.attach(fused_level(
+                lo, hi, w, eid, valid, label_map,
+                n=n_pad, eid_capacity=eid_cap, rounds=cfg.rounds_per_level, pack=be.pack,
+                segmin=be.hook, segmin_dedupe=be.dedupe_segmin,
+                dedupe_host=be.dedupe == "host",
+            ))
         n_next = int(res.n_next) - (n_pad - n_cur)  # drop padding roots
         if n_next == n_cur:  # every component already complete
             break
@@ -267,33 +296,39 @@ def run_levels(graph: Graph, config: CoarsenConfig | None = None, *,
         # vertices are isolated, so they stay roots and their ranks trail
         # the real ones: real supervertex ids remain contiguous in [0, R).
         n_pad = next_pow2(n_cur, floor=8)
-        res = contract_level_und(
-            lo, hi, w, eid, valid,
-            n=n_pad, eid_capacity=eid_cap, rounds=cfg.rounds_per_level,
-            pack=be.pack, segmin=be.hook,
-        )
-        n_next = int(res.n_next) - (n_pad - n_cur)  # drop padding roots
-        if n_next == n_cur:  # every component already complete
-            break
-        n_f = int(res.n_msf_edges)
-        eids_acc.append(res.msf_eids[:n_f])
-        weight += float(res.weight)
-        if be.dedupe == "host":
-            l2, h2, w2, e2 = filter_level_host(lo, hi, w, eid, valid, res.new_ids, n_cur)
-            m_next = len(l2)
-            pad = _next_pow2(m_next)
-            lo, hi, w, eid = (front_packed(a, pad, f, dev)
-                              for a, f in zip((l2, h2, w2, e2), (0, 0, float("inf"), IMAX)))
-        else:
-            fr = filter_level(lo, hi, w, eid, valid, res.new_ids,
-                              n=n_pad, pack=be.pack, segmin=be.dedupe_segmin)
-            m_next = int(fr.m_new)
-            pad = _next_pow2(m_next)
-            lo, hi, w, eid = fr.lo[:pad], fr.hi[:pad], fr.w[:pad], fr.eid[:pad]
-        label_map = res.new_ids[label_map.long()]
-        stats.append(LevelStats(n=n_cur, m=m_cur, n_next=n_next, m_next=m_next, hooked=n_f))
-        valid = torch.arange(pad, device=dev) < m_next  # the filter front-packs
-        n_cur, m_cur = n_next, m_next
+        with obs.span("coarsen.level", level=len(stats), n=n_cur, m=m_cur):
+            res = _contract(
+                lo, hi, w, eid, valid,
+                n=n_pad, eid_capacity=eid_cap, rounds=cfg.rounds_per_level,
+                pack=be.pack, segmin=be.hook,
+            )
+            n_next = int(res.n_next) - (n_pad - n_cur)  # drop padding roots
+            if n_next == n_cur:  # every component already complete
+                break
+            n_f = int(res.n_msf_edges)
+            eids_acc.append(res.msf_eids[:n_f])
+            weight += float(res.weight)
+            with obs.span("coarsen.filter", n=n_pad, host=be.dedupe == "host") as fsp:
+                if be.dedupe == "host":
+                    l2, h2, w2, e2 = filter_level_host(lo, hi, w, eid, valid, res.new_ids,
+                                                       n_cur)
+                    m_next = len(l2)
+                    pad = _next_pow2(m_next)
+                    lo, hi, w, eid = (
+                        front_packed(a, pad, f, dev)
+                        for a, f in zip((l2, h2, w2, e2), (0, 0, float("inf"), IMAX)))
+                else:
+                    fr = fsp.attach(filter_level(lo, hi, w, eid, valid, res.new_ids,
+                                                 n=n_pad, pack=be.pack,
+                                                 segmin=be.dedupe_segmin))
+                    m_next = int(fr.m_new)
+                    pad = _next_pow2(m_next)
+                    lo, hi, w, eid = fr.lo[:pad], fr.hi[:pad], fr.w[:pad], fr.eid[:pad]
+            label_map = res.new_ids[label_map.long()]
+            stats.append(LevelStats(n=n_cur, m=m_cur, n_next=n_next, m_next=m_next,
+                                    hooked=n_f))
+            valid = torch.arange(pad, device=dev) < m_next  # the filter front-packs
+            n_cur, m_cur = n_next, m_next
 
     return _prelude(graph, cfg, lo, hi, w, eid, valid, label_map, weight, eids_acc,
                     stats, n_cur, m_cur, be)
@@ -343,8 +378,11 @@ class CoarsenMSF:
         self.last_backends: LevelBackends | None = None
 
     def __call__(self, graph: Graph) -> MSFResult:
-        prelude = run_levels(graph, self.config)
-        r = flat_msf(prelude.residual, **self.msf_kw)
+        with obs.span("coarsen.levels", n=graph.n):
+            prelude = run_levels(graph, self.config)
+        with obs.span("coarsen.residual", n=prelude.residual.n,
+                      m=prelude.stats.residual_m) as sp:
+            r = sp.attach(flat_msf(prelude.residual, **self.msf_kw))
         self.last_stats = prelude.stats
         self.last_backends = prelude.backends
         return _finalize(

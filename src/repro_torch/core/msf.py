@@ -14,6 +14,9 @@ Variants, as in ``repro.core.msf``:
 The JAX driver's ``lax.while_loop`` is a host loop here: one round per
 step, stopping when a round changes no parent (FastSV's convergence
 test, paper §V) or at the unroll guard; the stop test is one ``.item()``.
+In obs trace mode the same loop runs under an ``msf.flat`` span with one
+device-synced ``msf.round`` span per round (the reference's traced
+driver); otherwise it adds no span and no sync.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs.trace import trace_span
 from repro_torch.core import shortcut as sc
 from repro_torch.core.multilinear import (
     min_outgoing_coo,
@@ -161,10 +165,17 @@ def run_flat(
     shortcut_fn = sc.make_shortcut_fn(shortcut, capacity) if variant != "paper" else None
     body = _make_msf_body(graph, variant, shortcut_fn, pack, segmin)
     state = _msf_init(graph, parent0)
-    while not state[5] and (not unroll_guard or state[4] < limit):
-        state = body(state)
-    p, total, msf_eids, n_f, it, _ = state
-    p = sc.complete_shortcut(p)  # canonical labels (complete variant: no-op)
+    # msf.flat / msf.round open only in trace mode (the reference's
+    # _msf_traced): off and metrics run the same loop with no span and no
+    # sync. The round attr is the host loop's own int.
+    with trace_span("msf.flat", n=graph.n, variant=variant) as sp:
+        while not state[5] and (not unroll_guard or state[4] < limit):
+            with trace_span("msf.round", round=state[4]) as rsp:
+                state = rsp.attach(body(state))
+        p, total, msf_eids, n_f, it, _ = state
+        # canonical labels (complete variant: no-op)
+        p = sp.attach(sc.complete_shortcut(p))
+        sp.set(iterations=it)
     return MSFResult(
         weight=total, parent=p, msf_eids=msf_eids, n_msf_edges=n_f,
         iterations=torch.tensor(it, dtype=torch.int32, device=graph.device),

@@ -6,7 +6,9 @@ CUDA device it launches the hand-written kernel or raises. There is no
 fallback from a failed build or launch. Each wrapper counts its kernel
 launches in a plain integer attribute (``segment_min_flat.launches``,
 ``segment_min_sorted.launches``, ``segment_min_bucketed.launches``,
-``multilinear_dense.launches``).
+``multilinear_dense.launches``) and, while ``repro_torch.obs`` metrics are
+on, in the counter ``kernel.<name>.launches``: what a serving process
+reports of its launches through its ``metrics`` snapshot.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from functools import lru_cache
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.semiring import PACK_IDENTITY
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (
@@ -79,6 +82,14 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
 
 
+def _count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: its ``launches`` attribute, and
+    the ``kernel.<name>.launches`` obs counter while metrics are on."""
+    wrapper.launches += 1
+    if obs.metrics_active():
+        obs.counter(f"kernel.{wrapper.__name__}.launches").inc()
+
+
 @lru_cache(maxsize=None)
 def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
@@ -139,7 +150,7 @@ def segment_min_flat(keys: torch.Tensor, segs: torch.Tensor, num_segments: int) 
     out = torch.empty(num_segments, dtype=torch.int64, device=keys.device)
     head, vec_ids = flat_layout(keys.data_ptr(), segs.data_ptr(), keys.numel())
     _launch("segment_min_flat", keys, segs, out, keys.numel(), num_segments, head, int(vec_ids))
-    segment_min_flat.launches += 1
+    _count_launch(segment_min_flat)
     return out
 
 
@@ -163,7 +174,7 @@ def segment_min_sorted(keys: torch.Tensor, segs: torch.Tensor, num_segments: int
         return segment_min_sorted_ref(keys, segs, num_segments)
     out = torch.empty(num_segments, dtype=torch.int64, device=keys.device)
     _launch("segment_min_sorted", keys, segs, out, keys.numel(), num_segments)
-    segment_min_sorted.launches += 1
+    _count_launch(segment_min_sorted)
     return out
 
 
@@ -256,7 +267,7 @@ def segment_min_bucketed(keys: torch.Tensor, rows: torch.Tensor, *,
     out = torch.empty(nb * block_rows, dtype=torch.int64, device=keys.device)
     chunks, per_block = bucketed_split(nb, be, block_rows, _sm_count(keys.device))
     _launch("segment_min_bucketed", keys, rows, out, nb, be, block_rows, chunks, per_block)
-    segment_min_bucketed.launches += 1
+    _count_launch(segment_min_bucketed)
     return out
 
 
@@ -302,7 +313,7 @@ def multilinear_dense(p: torch.Tensor, a: torch.Tensor):
     mincol = torch.empty(n, dtype=torch.int32, device=a.device)
     minpay = torch.empty(n, dtype=torch.int32, device=a.device)
     _launch("multilinear_dense", p, a, n, minw, mincol, minpay)
-    multilinear_dense.launches += 1
+    _count_launch(multilinear_dense)
     return minw, mincol, minpay
 
 

@@ -1,0 +1,3 @@
+"""Command-line entry points of the port (counterpart of ``repro.launch``):
+``python -m repro_torch.launch.serve_graph`` replays an edge stream
+through a stream plan or serves one over ``serve/v1`` TCP."""

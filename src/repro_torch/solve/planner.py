@@ -13,8 +13,14 @@ engine in a cheap :class:`Plan` handle:
 Engines are target-free: the cache stores machinery, never the target's
 tensors. Stream plans are stateful (they own a forest) and are not
 cached. ``mode="flat"``, ``"coarsen"`` and ``"stream"`` are registered in
-the port so far; ``"dist"``, ``obs`` and ``tuning`` raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+the port so far; ``"dist"`` and ``tuning`` raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
+
+``SolveSpec(obs="metrics"|"trace")`` scopes that observability mode
+around planning (``plan.resolve`` and ``plan.build`` spans, the
+``plan.cache.{hit,miss}`` counters) and around every plan call (a
+``solve.<mode>[.<call>]`` span, and the span totals of the call in
+``SolveReport.timings``), as in the reference.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.solve import spec as _spec_mod
 from repro_torch.solve.report import SolveReport
 from repro_torch.solve.spec import MODES, ResolvedSpec, SolveSpec
@@ -140,25 +147,27 @@ def plan(target, spec: SolveSpec | None = None, *, mesh=None, device=None,
             f"no engine registered for mode {spec.mode!r} "
             f"(registered: {registered_modes()})"
         )
-    if spec.obs != "off":
-        raise NotImplementedError(
-            f"obs={spec.obs!r}: observability is not ported yet "
-            f"(ROADMAP Queue 1 item 11); use obs='off'"
-        )
     on_graph = isinstance(getattr(target, "src", None), torch.Tensor)
     backend = None if device is None or on_graph else torch.device(device).type
-    resolved = spec.resolve(target, backend=backend, mesh=mesh)
-    engine = None
-    key = None
-    if edef.cacheable:
-        # The key carries the *resolved* spec: two same-shape targets whose
-        # data or device resolves differently must not share an engine.
-        key = (resolved, _shape_key(target), mesh)
-        engine = _cache_get(key)
-    if engine is None:
-        engine = edef.builder(target, resolved, mesh)
-        if key is not None:
-            _cache_put(key, engine)
+    with obs.enabled(spec.obs):
+        with obs.span("plan.resolve", mode=spec.mode):
+            resolved = spec.resolve(target, backend=backend, mesh=mesh)
+        engine = None
+        key = None
+        if edef.cacheable:
+            # The key carries the *resolved* spec: two same-shape targets whose
+            # data or device resolves differently must not share an engine.
+            key = (resolved, _shape_key(target), mesh)
+            engine = _cache_get(key)
+            if obs.metrics_active():
+                obs.counter(
+                    "plan.cache.hit" if engine is not None else "plan.cache.miss"
+                ).inc()
+        if engine is None:
+            with obs.span("plan.build", mode=spec.mode):
+                engine = edef.builder(target, resolved, mesh)
+            if key is not None:
+                _cache_put(key, engine)
     return Plan(spec=spec, resolved=resolved, target=target, mesh=mesh, engine=engine)
 
 
@@ -200,14 +209,29 @@ class Plan:
     @property
     def cost(self):
         """Analytic plan cost. The reference derives it from XLA HLO, which
-        has no counterpart in the port yet (ROADMAP Queue 1 item 11)."""
+        has no counterpart in the port yet (ROADMAP Queue 1 item 11e)."""
         return None
+
+    def _observed(self, what: str, call):
+        """Run one engine call under this spec's ``obs`` scope: a
+        ``solve.<mode>[.<what>]`` span and, for a ``SolveReport``, the
+        per-span ``timings``. With the global mode and the spec's knob
+        both off, this is two checks around the call."""
+        if not obs.metrics_active() and self.spec.obs == "off":
+            return call()
+        name = f"solve.{self.spec.mode}" + (f".{what}" if what else "")
+        with obs.enabled(self.spec.obs):
+            with obs.collect_timings() as t, obs.span(name):
+                rep = call()
+            if t and isinstance(rep, SolveReport):
+                rep = rep._replace(timings=dict(t))
+        return rep
 
     def solve(self, *args, **kw) -> SolveReport:
         """Run the full solve for this plan's target; flat plans accept
         ``parent0=`` (array-like, moved to the graph's device) for warm
         starts."""
-        return self._engine.solve(self.target, *args, **kw)
+        return self._observed("", lambda: self._engine.solve(self.target, *args, **kw))
 
     # -- stream-mode surfaces -------------------------------------------
 
@@ -221,27 +245,32 @@ class Plan:
 
     def update(self, u, v, w) -> SolveReport:
         """Stream mode: apply one batch of edge insertions."""
-        return self._stream().update(u, v, w)
+        eng = self._stream()
+        return self._observed("update", lambda: eng.update(u, v, w))
 
     def delete(self, u, v) -> SolveReport:
         """Stream mode: delete a batch of edges (exact replacement-edge
         search by default; tombstones under ``exact_deletes=False``)."""
-        return self._stream().delete(u, v)
+        eng = self._stream()
+        return self._observed("delete", lambda: eng.delete(u, v))
 
     def recertify(self, u, v, w) -> SolveReport:
         """Stream mode: rebuild forest + reservoir exactly from a
         caller-supplied surviving edge multiset — the recovery path when
         ``SolveReport.n_unhealed > 0`` after reservoir exhaustion."""
-        return self._stream().recertify(u, v, w)
+        eng = self._stream()
+        return self._observed("recertify", lambda: eng.recertify(u, v, w))
 
     def query(self, u, v):
         """Stream mode: batched connectivity queries against the latest
         published snapshot; returns a bool array."""
-        return self._stream().query(u, v)
+        eng = self._stream()
+        return self._observed("query", lambda: eng.query(u, v))
 
     def compact(self) -> SolveReport:
         """Stream mode: drop tombstones and rebuild the forest."""
-        return self._stream().compact()
+        eng = self._stream()
+        return self._observed("compact", lambda: eng.compact())
 
     def __repr__(self):
         return (

@@ -157,7 +157,7 @@ class SolveSpec:
     # dist mode
     row_axis: str = "data"
     col_axis: str = "model"
-    # observability: "off" | "metrics" | "trace" (only "off" is ported)
+    # observability: "off" | "metrics" | "trace"
     obs: str = "off"
     # tuning-database consultation: "off" | "db" | "measure" (only "off")
     tuning: str = "off"
@@ -246,7 +246,7 @@ class SolveSpec:
         if self.tuning != "off":
             raise NotImplementedError(
                 f"tuning={self.tuning!r}: the tuning database is not ported "
-                f"yet (ROADMAP Queue 1 item 11); use tuning='off'"
+                f"yet (ROADMAP Queue 1 item 11e); use tuning='off'"
             )
         backend = backend or _target_device_type(target)
         pack = self.pack

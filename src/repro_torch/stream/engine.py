@@ -44,12 +44,14 @@ each union solve's result crosses to the host in one copy.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.coarsen.engine import CoarsenMSF
 from repro_torch.coarsen.config import CoarsenConfig
 from repro_torch.core.msf import flat_msf
@@ -60,6 +62,21 @@ from repro_torch.solve.spec import weights_packable
 from repro_torch.stream import delta
 from repro_torch.stream.service import next_pow2
 from repro_torch.stream.snapshot import SnapshotStore, make_snapshot
+
+
+def _spanned(name):
+    """Wrap a method in an ``obs.span(name)`` — the per-op latency surface
+    (span durations land in the ``span.<name>`` histogram of the default
+    registry when metrics are on; one extra frame and one branch when obs
+    is off)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            with obs.span(name):
+                return fn(*a, **kw)
+        return wrapper
+    return deco
 
 
 class _HostResult(NamedTuple):
@@ -308,6 +325,7 @@ class StreamEngine:
         for per-update reporting."""
         return self._gid[np.flatnonzero(~self._dead[: self._count])]
 
+    @_spanned("stream.update")
     def insert_batch(self, u, v, w) -> UpdateStats:
         """Apply one batch of undirected weighted edge insertions.
 
@@ -367,6 +385,7 @@ class StreamEngine:
             reservoir_size=len(self._reservoir),
         )
 
+    @_spanned("stream.delete")
     def delete_batch(self, u, v) -> DeleteStats:
         """Delete a batch of undirected edges (by endpoints) — exactly.
 
@@ -454,6 +473,8 @@ class StreamEngine:
                 lossy_comp[np.unique(self._canon[self._lossy])] = True
                 n_unhealed_new = int(lossy_comp[per_edge].sum())
             self._unhealed += n_unhealed_new
+            if n_unhealed_new:
+                obs.counter("stream.reservoir.exhausted").inc(n_unhealed_new)
             # Replacement-edge search: every reservoir entry of a split
             # component re-enters the union solve (cheapest-first across
             # capacity-sized chunks — the sparsification identity makes
@@ -462,6 +483,7 @@ class StreamEngine:
                 np.unique(per_edge)
             )
             if len(cl):
+                obs.counter("stream.reservoir.hits").inc(len(cl))
                 order = np.argsort(cw, kind="stable")
                 for k in range(0, len(cl), self._cap_cur):
                     sl = order[k : k + self._cap_cur]
@@ -497,6 +519,7 @@ class StreamEngine:
             n_replacements=n_replacements,
         )
 
+    @_spanned("stream.compact")
     def compact(self) -> UpdateStats:
         """Drop tombstoned rows and rebuild labels/weight from the retained
         forest edges (the rebuild-from-retained compaction path)."""
@@ -518,6 +541,7 @@ class StreamEngine:
             reservoir_size=len(self._reservoir),
         )
 
+    @_spanned("stream.recertify")
     def recertify(self, u, v, w) -> UpdateStats:
         """Rebuild forest + reservoir exactly from a caller-supplied edge
         source — the recovery path after unhealed deletions.
@@ -791,6 +815,7 @@ class StreamEngine:
             r = flat_msf(g, pack=use_pack, segmin=segmin, **self._msf_opts)
         return _to_host(r)
 
+    @_spanned("stream.union_solve")
     def _run_union(self, b_lo, b_hi, b_w, b_gid) -> _HostResult:
         """MSF over (live forest ∪ batch) in the fixed-capacity union
         buffer; rewrite the store from the result and publish a snapshot."""
@@ -853,6 +878,7 @@ class StreamEngine:
             lo_u[lose], hi_u[lose], w_u[lose], gid_u[lose], canon[lo_u[lose]]
         )
         if n_evicted:
+            obs.counter("stream.reservoir.evictions").inc(n_evicted)
             self._lossy |= np.isin(canon, evicted)
         if self._lossy.any():
             # Lossiness is a component property: normalize per-vertex

@@ -24,6 +24,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.coarsen.engine import next_pow2  # noqa: F401 — re-exported
 from repro_torch.stream.snapshot import Snapshot, SnapshotStore
 
@@ -94,22 +95,25 @@ class QueryService:
     # -- internals ---------------------------------------------------------
 
     def _run(self, u, v) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Snapshot]:
-        snap = self.store.acquire()  # one consistent version per batch
-        u = np.asarray(u, np.int32)
-        v = np.asarray(v, np.int32)
-        if u.shape != v.shape or u.ndim != 1:
-            raise ValueError("query endpoints must be 1-d arrays of equal length")
-        k = len(u)
-        if k == 0:
-            z = np.zeros(0, np.int32)
-            return np.zeros(0, bool), z, z, snap
-        if k > self.max_batch:
-            raise ValueError(f"query batch {k} exceeds max_batch={self.max_batch}")
-        n = snap.parent.shape[0]
-        if u.min() < 0 or v.min() < 0 or max(u.max(), v.max()) >= n:
-            raise ValueError(f"query vertex out of range [0, {n})")
-        conn, comp, size = _answer(snap.parent, snap.comp_size, u, v)
-        return conn, comp, size, snap
+        # the answers come back to the host inside the span, so it closes
+        # on the user-visible latency (what the p50/p95/p99 summary shows)
+        with obs.span("stream.query"):
+            snap = self.store.acquire()  # one consistent version per batch
+            u = np.asarray(u, np.int32)
+            v = np.asarray(v, np.int32)
+            if u.shape != v.shape or u.ndim != 1:
+                raise ValueError("query endpoints must be 1-d arrays of equal length")
+            k = len(u)
+            if k == 0:
+                z = np.zeros(0, np.int32)
+                return np.zeros(0, bool), z, z, snap
+            if k > self.max_batch:
+                raise ValueError(f"query batch {k} exceeds max_batch={self.max_batch}")
+            n = snap.parent.shape[0]
+            if u.min() < 0 or v.min() < 0 or max(u.max(), v.max()) >= n:
+                raise ValueError(f"query vertex out of range [0, {n})")
+            conn, comp, size = _answer(snap.parent, snap.comp_size, u, v)
+            return conn, comp, size, snap
 
 
 class MicroBatcher:
@@ -130,6 +134,12 @@ class MicroBatcher:
     never double-answer a window). A multi-threaded frontend should raise
     ``retain_windows`` so a thread that asked right before another
     thread's flush can still redeem its ticket.
+
+    When ``repro_torch.obs`` metrics mode is on, the batcher reports its
+    admission state: ``stream.batcher.queue_depth`` (gauge — pending
+    queries in the open window), ``stream.batcher.overflow`` (counter —
+    windows force-flushed at ``max_queue``), and ``stream.batcher.flush``
+    / ``stream.batcher.flushed_queries`` (counters).
     """
 
     def __init__(self, service: QueryService, max_queue: int = 4096, *,
@@ -153,7 +163,11 @@ class MicroBatcher:
                 self._pairs, self._results = [], None
             self._pairs.append((int(u), int(v)))
             ticket = (self._window, len(self._pairs) - 1)
+            if obs.metrics_active():
+                obs.gauge("stream.batcher.queue_depth").set(len(self._pairs))
             if len(self._pairs) >= self.max_queue:
+                if obs.metrics_active():
+                    obs.counter("stream.batcher.overflow").inc()
                 self.flush()
             return ticket
 
@@ -170,6 +184,10 @@ class MicroBatcher:
             self._done[self._window] = self._results
             while len(self._done) > self.retain_windows:
                 self._done.popitem(last=False)
+            if obs.metrics_active() and self._results:
+                obs.counter("stream.batcher.flush").inc()
+                obs.counter("stream.batcher.flushed_queries").inc(len(self._results))
+                obs.gauge("stream.batcher.queue_depth").set(0)
             return self._results
 
     def result(self, ticket: Tuple[int, int]) -> bool:

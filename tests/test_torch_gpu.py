@@ -291,3 +291,97 @@ def test_stream_path_on_card_matches_cpu(card, coarsen):
         np.testing.assert_array_equal(pc.query(*q), pp.query(*q))
     assert ops.segment_min_flat.launches > 0
     assert (ops.segment_min_sorted.launches > 0) == coarsen
+
+
+def test_span_attach_synchronises_the_card(card, monkeypatch):
+    """A span holding CUDA tensors synchronises their device before it
+    closes; obs off, no span syncs."""
+    from repro_torch import obs
+
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: (calls.append(device), real(device)))
+    try:
+        obs.enable("trace")
+        with obs.span("s") as sp:
+            sp.attach({"x": (torch.ones(4, device=card), np.ones(2))})
+        assert calls == [torch.device("cuda", torch.cuda.current_device())]
+        obs.disable()
+        with obs.span("s") as sp:
+            sp.attach(torch.ones(4, device=card))
+        assert len(calls) == 1
+    finally:
+        obs.disable()
+        obs.reset()
+        obs.metrics_reset()
+
+
+def test_obs_modes_on_the_card(card):
+    """The flat and coarsen solves with obs off, "metrics" and "trace":
+    identical reports, one msf.round span per AS round, and the kernel
+    launches counted in the obs registry while metrics are on."""
+    from repro_torch import obs
+    from repro_torch.graphs import random_graph
+    from repro_torch.kernels import ops
+    from repro_torch.solve import SolveSpec, plan
+
+    g = random_graph(2048, 8192, seed=3, device=card)
+    try:
+        for mode in ("coarsen", "flat"):
+            base = plan(g, SolveSpec(mode=mode)).solve()
+            for m in ("metrics", "trace"):
+                obs.reset()
+                obs.metrics_reset()
+                before = ops.segment_min_flat.launches
+                rep = plan(g, SolveSpec(mode=mode, obs=m)).solve()
+                launched = ops.segment_min_flat.launches - before
+                for f in ("weight", "n_msf_edges", "iterations"):
+                    assert getattr(rep, f) == getattr(base, f), (mode, m, f)
+                np.testing.assert_array_equal(rep.msf_eids, base.msf_eids)
+                np.testing.assert_array_equal(rep.parent, base.parent)
+                counted = obs.metrics_snapshot()["counters"]
+                assert counted.get("kernel.segment_min_flat.launches", 0) == launched > 0
+                if m == "trace" and mode == "flat":
+                    rounds = sum(e[0] == "msf.round" for e in obs.trace_events())
+                    assert rounds == rep.iterations
+    finally:
+        obs.disable()
+        obs.reset()
+        obs.metrics_reset()
+
+
+def test_server_on_the_card_answers_like_the_cpu_server(card):
+    """The same frames to a server over a stream plan on the card and one
+    on the CPU: the same responses (uptime aside)."""
+    from repro_torch import obs, serve
+    from repro_torch.solve import SolveSpec, plan
+
+    spec = SolveSpec(mode="stream", batch_capacity=256)
+    out = []
+    try:
+        for dev in ("cuda", "cpu"):
+            p = plan(300, spec, device=dev)
+            h = serve.start_in_thread(p, serve.ServeConfig(port=0))
+            got = []
+            try:
+                with serve.ServeClient(h.address, timeout=60) as c:
+                    r = np.random.default_rng(9)
+                    for _ in range(4):
+                        u, v = r.integers(0, 300, (2, 200))
+                        got.append(c.insert(u, v, r.integers(1, 99, 200).astype(float)))
+                        q = r.integers(0, 300, (2, 64))
+                        got += [c.connected(*q), c.component_id(q[0]),
+                                c.component_size(q[1])]
+                    flo, fhi, _, _ = p.engine.forest_edges()
+                    got.append(c.delete(flo[:5], fhi[:5]))
+                    st = c.status()
+                    st["result"].pop("uptime_s")
+                    got.append(st)
+            finally:
+                h.drain(timeout=60)
+            out.append(got)
+    finally:
+        obs.disable()
+        obs.metrics_reset()
+    assert out[0] == out[1]

@@ -132,10 +132,7 @@ def test_spec_static_validation(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="coarsen", obs="trace"), "item 11"),
-    (dict(mode="stream", obs="metrics"), "item 11"),
-    (dict(mode="dist"), "item 12"), (dict(obs="trace"), "item 11"),
-    (dict(obs="metrics"), "item 11"), (dict(tuning="db"), "item 11"),
+    (dict(mode="dist"), "item 12"), (dict(tuning="db"), "item 11"),
 ])
 def test_unported_surfaces_raise(kw, item):
     g = cpu_graph(random_graph(10, 20, seed=0))
