@@ -95,6 +95,28 @@ Phases:
      flat solve (40 with obs off and with "metrics"; "trace" adds one
      explicit sync per msf.round span and one for msf.flat) and median
      solve times per mode;
+  6i. cost, tuner and load harness: plan.cost of the flat plans of phase
+     5's and 6's graphs and the coarsen plans of 6b's and 6c's, its
+     roofline prediction for the report's rounds beside the median solve
+     and the device busy time, the cost the report's, no host sync in the
+     model, the flat model's segment-min term equal to round 1's bytes
+     with every key live, 40 host syncs per R-MAT s20 flat solve;
+     tune(g, "flat", space="full") on R-MAT s20 and the grid and
+     tune(g, "coarsen", space="full") on the grid with a timer that checks
+     each measured solve's launches (one flat launch per AS round), no
+     candidate or winner on the plain segment-min, every candidate the
+     same forest (tune asserts it), the database through
+     `python -m repro_torch.launch.tune --check`, tuning="db" solves
+     equal in every field but cost to tuning="off" with the winner's knobs
+     (and, flat, with the default ones), and with the default knobs the
+     same weight, eid set and partition; `serve_graph
+     --loadgen` on phase 5's graph in process and against a `serve_graph
+     --serve` subprocess with 6g's arguments (`--target`), each at the
+     highest offered rate it sustains from 10,000 queries/s, the reports
+     through tools/check_slo_report.py, the writer's updates and deletes,
+     the flat kernel's launches in the run (the tuner and the load
+     harness run after phase 7, last: they need no profiler session, and
+     after a coarsen sweep torch.profiler drops most device events);
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -159,6 +181,15 @@ SERVE_DELETES = 1 << 14
 # a flush fuses at most 4 of them, QueryService's 2^14-point batch limit.
 SERVE_FLAGS = ("--micro-batch", str(1 << 14), "--queue-cap", str(1 << 16))
 SERVE_START_TIMEOUT_S = 600
+# Phase 6i: the load harness on phase 5's graph, in process and against a
+# server started with 6g's arguments. The offered rate walks from 10,000
+# queries/s, doubling while the run sustains it and halving until one does.
+LOADGEN_FLAGS = ("--scale", "20", "--edge-factor", "8", "--seed", "0", "--writer-batch",
+                 "131072", "--micro-batch", "4096", "--queue-cap", "65536", "--duration", "10")
+LOADGEN_QPS0 = 10_000
+LOADGEN_ATTEMPTS = 3
+# Host syncs of one flat R-MAT s20 solve (5 AS rounds; phase 6h, PR 16).
+FLAT_RMAT_SYNCS = 40
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
 # dense n x n float32 adjacency (1 GiB and 64 MiB).
 DENSE_GRAPHS = {"rmat_s14_ef8": dict(scale=14, edge_factor=8, seed=1),
@@ -220,11 +251,16 @@ def fixed_graph(name, n, m, wlevels, multi, seed, device):
 
 
 def same_report(a, b) -> bool:
+    """Every field of two SolveReports equal but ``cost``: that is the
+    plan's analysis, not a result, and it follows the plan's resolved
+    backends (the CPU's fused coarsen plan dedupes on the host)."""
     import numpy as np
     import torch
 
     for field in a._fields:
         x, y = getattr(a, field), getattr(b, field)
+        if field == "cost":
+            continue
         if field == "raw":
             if not all(torch.equal(p.cpu(), q.cpu()) for p, q in zip(x, y)):
                 return False
@@ -1712,6 +1748,322 @@ def obs_path(g_flat, g_coarsen, device="cuda") -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 6i: plan cost, tuner, load harness
+# ---------------------------------------------------------------------------
+
+def cost_path(plans: dict) -> dict:
+    """Phase 6i, cost: ``plan.cost`` of each (label, graph, spec), its
+    roofline prediction for the report's rounds beside the measured median
+    solve and the device busy time; the cost is the report's, costs no
+    host sync, and the flat model's segment-min term is round 1's
+    ``segmin_bytes`` with every key live."""
+    from repro_torch.core.msf import run_flat
+    from repro_torch.kernels import ops
+    from repro_torch.solve import plan
+    from repro_torch.solve.cost import flat_round_terms, plan_cost, predicted_time_s
+
+    rows = {}
+    for label, (g, spec) in plans.items():
+        p = plan(g, spec)
+        rep = p.solve()
+        cost = p.cost
+        check(cost is not None and rep.cost is cost,
+              f"cost {label}: the report's cost is not the plan's ({rep.cost!r})")
+        check(count_syncs(lambda: plan_cost(spec.mode, g, p.resolved)) == 0,
+              f"cost {label}: the cost model synchronised the card")
+        predicted = predicted_time_s(cost, iterations=rep.iterations)
+        measured = solve_times(g, {"solve": spec})["solve_s"]
+        busy = profile_solve(g, spec)["device_ms"] / 1e3
+        rows[label] = {"cost": cost.as_dict(), "rounds": rep.iterations,
+                       "predicted_s": predicted, "median_solve_s": measured,
+                       "device_busy_s": busy, "predicted_over_solve": predicted / measured,
+                       "predicted_over_busy": predicted / busy}
+        if spec.mode == "flat":
+            keys = []
+
+            def first_round(k, segs, n):
+                if not keys:
+                    keys.append(k.clone())
+                return ops.segment_min_flat(k, segs, n)
+
+            run_flat(g, pack=True, segmin=first_round)
+            bytes_, live = segmin_bytes(keys[0], g.n)
+            upper = bytes_ + (keys[0].numel() - live) * 4  # every key live
+            terms = flat_round_terms(g.n, int(g.src.shape[0]), p.resolved)
+            check(terms["segment_min"][0] == upper,
+                  f"cost {label}: segment-min term {terms['segment_min'][0]} B != round 1's "
+                  f"{upper} B at live == E")
+            rows[label]["terms_bytes"] = {k: v[0] for k, v in terms.items()}
+        print(f"  {label}: {cost.analyzed} {cost.bytes:.4g} B x {rep.iterations if cost.dynamic_loops else 1}"
+              f" -> predicted {predicted * 1e3:.3f} ms; solve {measured * 1e3:.3f} ms, "
+              f"device busy {busy * 1e3:.3f} ms", flush=True)
+    return rows
+
+
+def counting_timer(mode: str):
+    """``tune``'s timer: three solves, each ended by a device sync, timed
+    on the host clock, each checked for its kernel launches (flat: one
+    flat launch per AS round under pack32, none on the float path;
+    coarsen: flat launches, and a sorted launch per level with the device
+    dedupe, none with the host's)."""
+    import torch
+
+    def timer(spec, solve_fn):
+        samples = []
+        for _ in range(3):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = solve_fn()
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+            got = {k: v - before[k] for k, v in read_counts().items()}
+            if mode == "flat":
+                want = rep.iterations if spec.pack else 0
+                check(got["segment_min_flat"] == want,
+                      f"tune: {got['segment_min_flat']} flat launches for {rep.iterations} "
+                      f"rounds of {spec}")
+            else:
+                check(got["segment_min_flat"] > 0, f"tune: no flat launch in {spec}")
+                sorted_ok = (got["segment_min_sorted"] >= len(rep.levels) > 0
+                             if spec.dedupe == "device" else got["segment_min_sorted"] == 0)
+                check(sorted_ok, f"tune: {got['segment_min_sorted']} sorted launches for "
+                                 f"{len(rep.levels)} levels of {spec}")
+        return samples
+    return timer
+
+
+def tune_path(graphs: dict) -> tuple[dict, dict]:
+    """Phase 6i, tuner: ``tune(g, mode, space="full")`` for each (label,
+    mode, graph); no candidate or winner on the plain segment-min; the
+    database through ``repro_torch.launch.tune --check``; a ``tuning="db"``
+    solve equal in every report field but ``cost`` to the ``"off"`` solve
+    with the winner's knobs, and to the default one in its forest.
+    Returns (rows, launches by run)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.solve import SolveSpec, plan, set_tuning_db
+    from repro_torch.solve import tune as T
+
+    db = T.TuningDB()
+    rows, launches = {}, {}
+    for (label, mode), g in graphs.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        res = T.tune(g, mode, db=db, space="full", timer=counting_timer(mode))
+        launches[f"tune {mode} {label}"] = read_counts()
+        for r in res.ranking:
+            check(r.spec.segmin != T.PLAIN_SEGMIN
+                  and r.spec.resolve(g).segmin_flat is not ref.segment_min_flat_ref,
+                  f"tune {label}: candidate {T.spec_knobs(r.spec)} runs the plain segment-min")
+        check(res.winner.segmin != T.PLAIN_SEGMIN, f"tune {label}: the plain version won")
+        rows[f"{mode} {label}"] = {
+            "key": res.key._asdict(), "pruned": res.pruned, "seconds": time.perf_counter() - t0,
+            "winner": T.spec_knobs(res.winner),
+            "ranking": [{"knobs": T.spec_knobs(r.spec), "median_us": r.median_us,
+                         "iqr_us": r.iqr_us, "predicted_s": r.predicted_s}
+                        for r in res.ranking]}
+        print(f"  tune {mode} {label}: {len(res.ranking)} measured, {res.pruned} pruned, "
+              f"winner {T.spec_knobs(res.winner)} at {res.ranking[0].median_us:.1f} us "
+              f"(slowest {res.ranking[-1].median_us:.1f} us)", flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
+    try:
+        path = db.save(str(tmp / "tuning-db.json"))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p))
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.tune", "--check", path],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"tune --check: {proc.stdout} {proc.stderr}")
+        set_tuning_db(db)
+        for (label, mode), g in graphs.items():
+            tuned = plan(g, SolveSpec(mode=mode, tuning="db"))
+            check(tuned.resolved.spec.segmin != T.PLAIN_SEGMIN,
+                  f"tune {label}: tuning='db' resolved the plain segment-min")
+            rep = tuned.solve()
+            # every field of the solve with the winner's knobs and tuning off
+            same = plan(g, dataclasses.replace(tuned.resolved.spec, tuning="off")).solve()
+            check(same_report(same, rep),
+                  f"tune {label}: the tuning='db' {mode} solve differs from tuning='off' "
+                  f"with the same knobs")
+            # the default solve's forest: a tuned coarsen cutoff or round
+            # count changes the levels, the rounds and the eids' order
+            off = plan(g, SolveSpec(mode=mode)).solve()
+            check(rep.weight == off.weight and rep.n_msf_edges == off.n_msf_edges
+                  and set(rep.msf_eids.tolist()) == set(off.msf_eids.tolist())
+                  and np.array_equal(rep.parent, off.parent),
+                  f"tune {label}: the tuning='db' {mode} forest differs from tuning='off'")
+            if mode == "flat":
+                check(same_report(off, rep),
+                      f"tune {label}: the tuning='db' flat solve differs from tuning='off'")
+    finally:
+        set_tuning_db(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows, launches
+
+
+LOADGEN_CHILD = """
+import json, sys
+from repro_torch import obs
+from repro_torch.launch import serve_graph
+try:
+    serve_graph.main(["--loadgen", *sys.argv[2:]])
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+with open(sys.argv[1], "w") as f:
+    json.dump(obs.metrics_snapshot(), f)
+sys.exit(rc)
+"""
+
+
+def loadgen_attempt(qps: int, tmp: Path, extra=(), device="cuda") -> dict:
+    """``python -m repro_torch.launch.serve_graph --loadgen`` at ``qps`` in
+    a subprocess (a wrapper dumps its process's obs metrics after it):
+    exit code, report, metrics, and whether the run sustained the rate
+    (exit 0, achieved ≥ 0.9 × offered, under 1% dropped, rejected or
+    failed)."""
+    import os
+
+    out, metrics = tmp / f"slo_{qps}.json", tmp / f"metrics_{qps}.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", LOADGEN_CHILD, str(metrics), *LOADGEN_FLAGS,
+                           "--qps", str(qps), "--out", str(out), "--device", device, *extra],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(out.exists(), f"loadgen --qps {qps} wrote no report (exit {proc.returncode}): "
+                        f"{proc.stderr[-2000:]}")
+    rep = json.loads(out.read_text())
+    q = rep["queries"]
+    lost = (q["dropped"] + q.get("rejected", 0) + q.get("errors", 0)) / max(1, q["offered"])
+    rate_ok = rep["achieved_qps"] >= 0.9 * qps and lost < 0.01
+    return {"qps": qps, "rc": proc.returncode, "report": rep, "path": out,
+            "metrics": json.loads(metrics.read_text()) if metrics.exists() else {},
+            "lost_frac": lost, "sustained": proc.returncode == 0 and rate_ok,
+            "latency_only": rate_ok and proc.returncode != 0,
+            "seconds": time.perf_counter() - t0}
+
+
+def rate_search(attempt) -> tuple[dict, list]:
+    """The highest offered rate a loadgen run sustains: from
+    ``LOADGEN_QPS0``, doubling while sustained; below it, halving until
+    one is, unless only the latency targets were missed (a window of
+    queries fills faster at a higher rate, so the rate doubles then)."""
+    rate, best, runs, tried = LOADGEN_QPS0, None, [], set()
+    step = 2
+    while len(runs) < LOADGEN_ATTEMPTS and rate not in tried:
+        tried.add(rate)
+        r = attempt(rate)
+        runs.append(r)
+        print(f"    --qps {rate}: exit {r['rc']}, achieved {r['report']['achieved_qps']:.1f}, "
+              f"lost {r['lost_frac']:.4f}, p50/p99 {r['report']['latency_ms']['p50']:.1f} / "
+              f"{r['report']['latency_ms']['p99']:.1f} ms, failures "
+              f"{r['report']['slo']['failures']} ({r['seconds']:.1f} s)", flush=True)
+        if r["sustained"]:
+            best = r
+            if step < 1:
+                break  # walking down: the first sustained rate is the highest
+            step = 2
+        elif best is not None:
+            break
+        else:
+            step = 2 if r["latency_only"] and step > 1 else 0.5
+        rate = int(rate * step)
+    check(best is not None, f"loadgen: no offered rate sustained in {[r['qps'] for r in runs]}")
+    return best, runs
+
+
+def check_slo(path: Path, tcp: bool) -> None:
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "check_slo_report.py"),
+                           str(path), *(["--tcp"] if tcp else [])],
+                          capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"check_slo_report {path}: {proc.stderr.strip()}")
+
+
+def loadgen_row(best: dict, runs: list, launches: int) -> dict:
+    rep = best["report"]
+    return {"sustained_qps": best["qps"], "achieved_qps": rep["achieved_qps"],
+            "latency_ms": rep["latency_ms"], "queries": rep["queries"], "writer": rep["writer"],
+            "lost_frac": best["lost_frac"], "flat_launches": launches,
+            "attempts": [{"qps": r["qps"], "rc": r["rc"], "sustained": r["sustained"],
+                          "achieved_qps": r["report"]["achieved_qps"],
+                          "p50_ms": r["report"]["latency_ms"]["p50"],
+                          "p99_ms": r["report"]["latency_ms"]["p99"],
+                          "lost_frac": r["lost_frac"], "queries": r["report"]["queries"],
+                          "failures": r["report"]["slo"]["failures"],
+                          "seconds": r["seconds"]} for r in runs]}
+
+
+def loadgen_path(device="cuda") -> tuple[dict, dict]:
+    """Phase 6i, load harness: in process, then over TCP against a
+    ``serve_graph --serve`` subprocess with 6g's arguments. Each at the
+    highest rate it sustains; the report through tools/check_slo_report.py;
+    the writer applied updates and deletes; the flat kernel launched in
+    the run (the in-process run's own metrics; the server's counter)."""
+    import tempfile
+
+    from repro_torch.serve import ServeClient
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loadgen_"))
+    (tmp / "in_process").mkdir()
+    (tmp / "tcp").mkdir()
+    rows, launches = {}, {}
+    proc = None
+    try:
+        best, runs = rate_search(lambda q: loadgen_attempt(q, tmp / "in_process",
+                                                           device=device))
+        check_slo(best["path"], tcp=False)
+        rep = best["report"]
+        check(rep["writer"]["updates"] > 0 and rep["writer"]["deletes"] > 0,
+              f"loadgen: the writer applied {rep['writer']['updates']} updates and "
+              f"{rep['writer']['deletes']} deletes")
+        n_flat = best["metrics"].get("counters", {}).get("kernel.segment_min_flat.launches", 0)
+        check(n_flat > 0, "loadgen: kernel.segment_min_flat.launches is 0 in the run's metrics")
+        launches["loadgen rmat_s20_ef8 in process"] = n_flat
+        rows["in_process"] = loadgen_row(best, runs, n_flat)
+
+        graph = LOADGEN_FLAGS[:6]  # --scale, --edge-factor, --seed
+        args = [*graph, "--batch-capacity", LOADGEN_FLAGS[7], "--warm-frac",
+                str(SERVE_WARM_FRAC), "--device", device, *SERVE_FLAGS]
+        t0 = time.perf_counter()
+        proc, _, lines, addr, _ = start_server(args, tmp / "server.log")
+        rows["server_start_s"] = time.perf_counter() - t0
+        counts = {}
+
+        def attempt(q):
+            with ServeClient(addr, timeout=300) as c:
+                before = counter(c, "kernel.segment_min_flat.launches")
+            r = loadgen_attempt(q, tmp / "tcp", ("--target", addr,
+                                                 "--warm-frac", str(SERVE_WARM_FRAC)), device)
+            with ServeClient(addr, timeout=300) as c:
+                counts[q] = counter(c, "kernel.segment_min_flat.launches") - before
+            return r
+
+        best, runs = rate_search(attempt)
+        check_slo(best["path"], tcp=True)
+        rep = best["report"]
+        check(rep["writer"]["updates"] > 0 and rep["writer"]["deletes"] > 0,
+              f"loadgen --target: the writer applied {rep['writer']['updates']} updates and "
+              f"{rep['writer']['deletes']} deletes")
+        check(counts[best["qps"]] > 0, "loadgen --target: the server launched no flat kernel")
+        launches["loadgen rmat_s20_ef8 over tcp"] = counts[best["qps"]]
+        rows["tcp"] = loadgen_row(best, runs, counts[best["qps"]])
+        rows["tcp"]["server_counters"] = rep["server"]["metrics"]["counters"]
+        stop_server(proc, lines, tmp / "server.log")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows, launches
+
+
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
     """Median end-to-end solve seconds of each spec, in turns after one
     warm-up each."""
@@ -1978,6 +2330,21 @@ def main():
     print(json.dumps({"obs_on_the_card": obs_row, "card": smi}))
     print(f"  phase 6h took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    phase("6i plan cost (the tuner and the load harness run after phase 7)")
+    t0 = time.perf_counter()
+    cost_rows = cost_path({
+        "flat rmat_s20_ef8": (g_rmat, SolveSpec()),
+        "flat grid_1024x1024": (g_grid, SolveSpec()),
+        "coarsen rmat_s19_ef8": (g_rmat19, SolveSpec(mode="coarsen")),
+        "coarsen grid_1024x1024": (g_grid, SolveSpec(mode="coarsen")),
+    })
+    flat_syncs = count_syncs(plan(g_rmat, SolveSpec()).solve)
+    check(flat_syncs == FLAT_RMAT_SYNCS,
+          f"cost: {flat_syncs} host syncs per flat R-MAT s20 solve, not {FLAT_RMAT_SYNCS}")
+    print(json.dumps({"plan_cost": cost_rows, "flat_rmat_s20_ef8_syncs": flat_syncs,
+                      "card": smi}))
+    print(f"  phase 6i (plan cost) took {time.perf_counter() - t0:.1f} s", flush=True)
+
     phase("7 times")
     per_round = round_times(g_rmat)
     print(json.dumps({"segment_min_flat_per_round_rmat_s20_ef8": per_round, "card": smi}))
@@ -2026,6 +2393,18 @@ def main():
     prof["host_share_of_median_update"] = 1 - (prof["device_busy_ms"] / 1e3
                                                / stream_b["insert_latency_median_s"])
     print(json.dumps({"stream_rmat_s20_ef8_one_update_profiled": prof, "card": smi}))
+
+    # Last, after every profiler session: neither needs one, and after a
+    # coarsen sweep torch.profiler drops most device events of later runs.
+    phase("6i tuner and load harness")
+    t0 = time.perf_counter()
+    tune_rows, tune_launches = tune_path({("rmat_s20_ef8", "flat"): g_rmat,
+                                          ("grid_1024x1024", "flat"): g_grid,
+                                          ("grid_1024x1024", "coarsen"): g_grid})
+    print(json.dumps({"tune": tune_rows, "card": smi}))
+    loadgen_rows, loadgen_launches = loadgen_path()
+    print(json.dumps({"loadgen": loadgen_rows, "card": smi}))
+    print(f"  phase 6i (tuner, load harness) took {time.perf_counter() - t0:.1f} s", flush=True)
     mean_dense = {k: statistics.fmean(r[k] for r in dense_rows) for k in fields
                   if k != "library_ms"}
     mean_bucketed = {k: statistics.fmean(r[k] for r in bucket_rows) for k in fields}
@@ -2044,7 +2423,9 @@ def main():
                 entry_launches["segment_min_flat"],
             **stream_launches(stream_a, stream_b, "segment_min_flat"),
             "serve rmat_s20_ef8 inserts": serve_row["insert_launches"],
-            "serve rmat_s20_ef8 delete": serve_row["delete_launches"]},
+            "serve rmat_s20_ef8 delete": serve_row["delete_launches"],
+            **{k: v["segment_min_flat"] for k, v in tune_launches.items()},
+            **loadgen_launches},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
@@ -2066,7 +2447,9 @@ def main():
         "launches": coarsen_launches["rmat_s19_ef8"]["segment_min_sorted"],
         "launches_by_path": {**{f"coarsen {k}": v["segment_min_sorted"]
                                 for k, v in coarsen_launches.items()},
-                             **stream_launches(stream_a, stream_b, "segment_min_sorted")},
+                             **stream_launches(stream_a, stream_b, "segment_min_sorted"),
+                             **{k: v["segment_min_sorted"] for k, v in tune_launches.items()
+                                if k.startswith("tune coarsen")}},
         "matches_plain": True,
         "max_abs_err": max_err_sorted,
         "ms": mean_sorted["kernel_ms"],

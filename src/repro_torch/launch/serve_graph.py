@@ -28,10 +28,12 @@ Entry modes:
   ``--metrics-out`` dumps the final ``repro_torch.obs`` metrics snapshot
   JSON on shutdown;
 
-- ``--loadgen`` — the open-loop load harness, not ported yet: it raises
-  ``NotImplementedError`` (ROADMAP Queue 1 item 11c).
+- ``--loadgen`` — the open-loop SLO harness instead (every other flag
+  goes to :mod:`repro_torch.launch.loadgen`; with ``--target
+  tcp://HOST:PORT`` it drives a ``--serve`` server started with the same
+  ``--scale``, ``--edge-factor``, ``--seed`` and ``--warm-frac``).
 
-Both modes run on the card unless ``--device cpu`` asks for the CPU.
+Every mode runs on the card unless ``--device cpu`` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -151,10 +153,9 @@ def _serve_main(argv) -> int:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if "--loadgen" in argv:
-        raise NotImplementedError(
-            "serve_graph --loadgen: the load harness is not ported yet "
-            "(ROADMAP Queue 1 item 11c)"
-        )
+        from repro_torch.launch.loadgen import main as loadgen_main
+
+        raise SystemExit(loadgen_main([a for a in argv if a != "--loadgen"]))
     if "--serve" in argv:
         raise SystemExit(
             _serve_main([a for a in argv if a != "--serve"])

@@ -13,8 +13,10 @@ engine in a cheap :class:`Plan` handle:
 Engines are target-free: the cache stores machinery, never the target's
 tensors. Stream plans are stateful (they own a forest) and are not
 cached. ``mode="flat"``, ``"coarsen"`` and ``"stream"`` are registered in
-the port so far; ``"dist"`` and ``tuning`` raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+the port so far; ``"dist"`` raises ``NotImplementedError`` naming the
+ROADMAP item that brings it. Each engine built carries its analytic
+:class:`~repro_torch.solve.cost.PlanCost` (``Plan.cost``, and
+``SolveReport.cost`` of every call), computed once from shapes.
 
 ``SolveSpec(obs="metrics"|"trace")`` scopes that observability mode
 around planning (``plan.resolve`` and ``plan.build`` spans, the
@@ -34,6 +36,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.solve import spec as _spec_mod
+from repro_torch.solve.cost import plan_cost
 from repro_torch.solve.report import SolveReport
 from repro_torch.solve.spec import MODES, ResolvedSpec, SolveSpec
 
@@ -166,6 +169,9 @@ def plan(target, spec: SolveSpec | None = None, *, mesh=None, device=None,
         if engine is None:
             with obs.span("plan.build", mode=spec.mode):
                 engine = edef.builder(target, resolved, mesh)
+                # Stored on the engine, so cache hits reuse it. Shapes
+                # only: no pass over the edges, no host sync.
+                engine._plan_cost = plan_cost(spec.mode, target, resolved)
             if key is not None:
                 _cache_put(key, engine)
     return Plan(spec=spec, resolved=resolved, target=target, mesh=mesh, engine=engine)
@@ -208,24 +214,32 @@ class Plan:
 
     @property
     def cost(self):
-        """Analytic plan cost. The reference derives it from XLA HLO, which
-        has no counterpart in the port yet (ROADMAP Queue 1 item 11e)."""
-        return None
+        """Analytic :class:`~repro_torch.solve.cost.PlanCost` of this plan,
+        computed once at build (``None`` out of the model's scope:
+        stream, or on failure)."""
+        return getattr(self._engine, "_plan_cost", None)
+
+    def _attach_cost(self, rep):
+        if isinstance(rep, SolveReport) and rep.cost is None:
+            c = self.cost
+            if c is not None:
+                rep = rep._replace(cost=c)
+        return rep
 
     def _observed(self, what: str, call):
         """Run one engine call under this spec's ``obs`` scope: a
         ``solve.<mode>[.<what>]`` span and, for a ``SolveReport``, the
         per-span ``timings``. With the global mode and the spec's knob
-        both off, this is two checks around the call."""
+        both off, this is two checks and the cost attach around the call."""
         if not obs.metrics_active() and self.spec.obs == "off":
-            return call()
+            return self._attach_cost(call())
         name = f"solve.{self.spec.mode}" + (f".{what}" if what else "")
         with obs.enabled(self.spec.obs):
             with obs.collect_timings() as t, obs.span(name):
                 rep = call()
             if t and isinstance(rep, SolveReport):
                 rep = rep._replace(timings=dict(t))
-        return rep
+        return self._attach_cost(rep)
 
     def solve(self, *args, **kw) -> SolveReport:
         """Run the full solve for this plan's target; flat plans accept

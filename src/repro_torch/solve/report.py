@@ -27,7 +27,7 @@ class SolveReport(NamedTuple):
     recompiles: int  # distinct executables compiled (stream mode)
     raw: Any  # engine-native result (MSFResult)
     timings: Dict[str, float] = {}  # span name -> seconds; {} when obs off
-    cost: Any = None  # analytic plan cost; not ported (always None)
+    cost: Any = None  # PlanCost of the plan (solve.cost); None off-scope
     stale: bool = False  # stream mode: snapshot may diverge from true MSF
     n_unhealed: int = 0  # stream mode: deletions not certifiably healed
 

@@ -159,7 +159,7 @@ class SolveSpec:
     col_axis: str = "model"
     # observability: "off" | "metrics" | "trace"
     obs: str = "off"
-    # tuning-database consultation: "off" | "db" | "measure" (only "off")
+    # tuning-database consultation: "off" | "db" | "measure"
     tuning: str = "off"
 
     def __post_init__(self):
@@ -240,51 +240,60 @@ class SolveSpec:
         """Turn auto knobs into concrete backend choices for ``target``.
 
         ``backend`` is a device type; by default the target graph's
-        (``"cuda"`` when the target carries no tensors). ``mesh`` is
-        accepted for signature parity with the reference and unused.
+        (``"cuda"`` when the target carries no tensors). With ``tuning !=
+        "off"`` the tuning database is consulted first
+        (``repro_torch.solve.tune``): a compatible winner fills the knobs
+        left on auto, and everything below resolves that *effective*
+        spec; on any database failure the rules run untouched. ``mesh``
+        only keys the tuning lookup.
         """
-        if self.tuning != "off":
-            raise NotImplementedError(
-                f"tuning={self.tuning!r}: the tuning database is not ported "
-                f"yet (ROADMAP Queue 1 item 11e); use tuning='off'"
-            )
         backend = backend or _target_device_type(target)
-        pack = self.pack
+        eff = self
+        if self.tuning != "off":
+            from repro_torch.solve.tune import resolve_overrides
+
+            tuned = resolve_overrides(self, target, backend, mesh)
+            if tuned is not None:
+                eff = tuned
+        pack = eff.pack
         if pack is None and self.mode != "stream":
             # Stream keeps None: its engine tracks packability per batch.
             arrays = _pack_probe_arrays(target)
             # No data to probe: the conservative float path.
             pack = auto_pack(*arrays) if arrays is not None else False
         if self.mode == "stream" and pack is True and target is not None:
-            union = (_stream_n(target) - 1) + self.batch_capacity
+            union = (_stream_n(target) - 1) + eff.batch_capacity
             if union >= PACK_IDX_MASK:
                 raise ValueError(
                     f"pack=True needs union eids < 2^24 - 1; (n - 1) + "
                     f"batch_capacity = {union} overflows the pack32 index "
                     f"field"
                 )
-        shortcut = self.shortcut or ("csp" if self.mode == "dist" else "complete")
-        coarsen = self.coarsen
+        shortcut = eff.shortcut or ("csp" if self.mode == "dist" else "complete")
+        coarsen = eff.coarsen
         if coarsen is None and self.mode == "coarsen":
             coarsen = CoarsenConfig()
         if coarsen is not None:
             # Spec-level segmin/dedupe/fused override the embedded config.
             merged = {}
-            if self.segmin is not None:
-                merged["segmin"] = self.segmin
-            if self.dedupe != "auto":
-                merged["dedupe"] = self.dedupe
-            if self.fused is not None:
-                merged["fused"] = self.fused
+            if eff.segmin is not None:
+                merged["segmin"] = eff.segmin
+            if eff.dedupe != "auto":
+                merged["dedupe"] = eff.dedupe
+            if eff.fused is not None:
+                merged["fused"] = eff.fused
             if merged:
                 coarsen = dataclasses.replace(coarsen, **merged)
+        # spec=eff: engines read knobs through rs.spec, and the plan-cache
+        # key must carry the knobs in effect (eff keeps self.tuning, so
+        # "db" and "off" never share a key).
         return ResolvedSpec(
-            spec=self,
+            spec=eff,
             backend=backend,
             pack=pack,
             shortcut=shortcut,
-            segmin_flat=resolve_flat_segmin(self.segmin, bool(pack), backend),
-            dedupe=resolve_dedupe(self.dedupe, backend),
+            segmin_flat=resolve_flat_segmin(eff.segmin, bool(pack), backend),
+            dedupe=resolve_dedupe(eff.dedupe, backend),
             coarsen=coarsen,
         )
 

@@ -1,6 +1,7 @@
 """Tests of the port that need the card (marker ``gpu``): the CUDA kernels
 against their plain versions, and the flat, coarsen and stream paths,
-connectivity and SSSP on the card against the CPU. Elsewhere they skip. Run them on an H100 with
+connectivity and SSSP on the card against the CPU, the tuner and the load
+harness on the card. Elsewhere they skip. Run them on an H100 with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -385,3 +386,71 @@ def test_server_on_the_card_answers_like_the_cpu_server(card):
         obs.disable()
         obs.metrics_reset()
     assert out[0] == out[1]
+
+
+def test_tune_on_the_card_never_runs_the_plain_segment_min(card):
+    """A full flat sweep on the card: no candidate resolves to the plain
+    segment-min, every pack32 candidate launches the kernel once per AS
+    round, and the winner resolves to the kernel or the float path."""
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels import ops, ref
+    from repro_torch.solve import tune
+
+    g = rmat_graph(12, 8, seed=3, device=card)
+    cands = tune.enumerate_candidates(g, "flat", space="full")
+    assert all(c.segmin != "torch" for c in cands)
+    for c in cands:
+        rs = c.resolve(g)
+        assert rs.segmin_flat is not ref.segment_min_flat_ref
+        assert rs.segmin_flat is (ops.segment_min_flat if rs.pack else None)
+
+    def timer(spec, solve_fn):
+        samples = []
+        for _ in range(2):
+            before = ops.segment_min_flat.launches
+            rep = solve_fn()
+            torch.cuda.synchronize()
+            launched = ops.segment_min_flat.launches - before
+            assert launched == (rep.iterations if spec.pack else 0)
+            samples.append(1.0)
+        return samples
+
+    res = tune.tune(g, "flat", space="full", timer=timer)
+    assert len(res.ranking) == len(cands) and res.key.backend == "cuda"
+    assert res.winner.segmin != "torch"
+    res = tune.tune(g, "flat", space="smoke", iters=2)  # the real clock
+    assert all(r.median_us > 0 for r in res.ranking)
+
+
+def test_loadgen_on_the_card(card, tmp_path):
+    """Three seconds of in-process load on the card: the report passes
+    tools/check_slo_report.py and the writer's unions launched the flat
+    kernel."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import loadgen
+
+    root = Path(__file__).resolve().parent.parent
+    out = tmp_path / "slo.json"
+    before = ops.segment_min_flat.launches
+    try:
+        rc = loadgen.main(["--qps", "2000", "--duration", "3", "--scale", "14",
+                           "--writer-batch", "4096", "--micro-batch", "256",
+                           "--out", str(out)])
+    finally:
+        obs.disable()
+        obs.reset()
+        obs.metrics_reset()
+    assert rc == 0
+    d = json.loads(out.read_text())
+    assert d["env"]["backend"] == "cuda" and d["slo"]["passed"]
+    assert d["writer"]["updates"] > 0 and d["queries"]["answered"] > 0
+    assert ops.segment_min_flat.launches > before
+    proc = subprocess.run([sys.executable, str(root / "tools" / "check_slo_report.py"), str(out)],
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr

@@ -566,13 +566,6 @@ def test_serve_graph_replay_on_the_cpu(capsys, tmp_path):
     assert "# metrics @batch 2: query p50=" in out and "-> OK" not in out
 
 
-def test_serve_graph_loadgen_is_not_ported():
-    from repro_torch.launch import serve_graph as tsg
-
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tsg.main(["--loadgen", "--qps", "10"])
-
-
 def test_serve_graph_serve_drains_on_sigterm(tmp_path):
     """``--serve`` as a process: the address line, a query, SIGTERM drains
     into a checkpoint and the metrics file; a second process restores."""
