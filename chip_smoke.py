@@ -117,6 +117,25 @@ Phases:
      the flat kernel's launches in the run (the tuner and the load
      harness run after phase 7, last: they need no profiler session, and
      after a coarsen sweep torch.profiler drops most device events);
+  6j. the distributed drivers, plan(part, SolveSpec(mode="dist"),
+     mesh=mesh).solve() on a Partition2D (run last, after the tuner and the
+     load harness): 1x1 on NCCL in this process (world 1) — the flat
+     Fig-2 solve of phase 5's graph with the csp (default, capacity 2^16),
+     os and baseline shortcuts: pack32 and the flat kernel resolved, one
+     flat launch per round, weight, edge count, eid set and partition equal
+     to the flat solve's (checked against scipy in phase 5), the report
+     identical to segmin="torch"; the in-mesh coarsening levels on 6b's and
+     6c's graphs: device dedupe, no host round trip, the sorted kernel once
+     per level, the flat kernel twice per hook and residual round, eid set,
+     weight and partition equal to the coarsen solve's; then 2x2 over gloo,
+     four spawned ranks sharing the one card (NCCL refuses two ranks on one
+     device): the flat solve of phase 5's graph and the coarsen levels on
+     the grid, every rank's report identical to the others' and to the
+     1x1 report (the levels' m columns count per-block entries, so they
+     differ by layout and are left out), every rank's launches checked;
+     rounds, host syncs, launches and median solve times beside the flat
+     and coarsen solves' medians (four ranks on one card are not a
+     distributed measurement);
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -132,6 +151,10 @@ Phases:
 Prints the kernels JSON line before the last line, and last
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
+
+On a host with four cards, `python3 -c "import chip_smoke;
+chip_smoke.dist_cards()"` runs phase 6j's 2x2 grid with one NCCL rank
+per card against the 1x1 solve.
 """
 from __future__ import annotations
 
@@ -190,6 +213,9 @@ LOADGEN_QPS0 = 10_000
 LOADGEN_ATTEMPTS = 3
 # Host syncs of one flat R-MAT s20 solve (5 AS rounds; phase 6h, PR 16).
 FLAT_RMAT_SYNCS = 40
+# Phase 6j: the 2x2 grid as four processes on the one card, over gloo.
+DIST_GRID = (2, 2)
+DIST_JOIN_TIMEOUT_S = 300
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
 # dense n x n float32 adjacency (1 GiB and 64 MiB).
 DENSE_GRAPHS = {"rmat_s14_ef8": dict(scale=14, edge_factor=8, seed=1),
@@ -2064,25 +2090,444 @@ def loadgen_path(device="cuda") -> tuple[dict, dict]:
     return rows, launches
 
 
-def solve_times(g, specs: dict, reps: int = 3) -> dict:
-    """Median end-to-end solve seconds of each spec, in turns after one
-    warm-up each."""
+# ---------------------------------------------------------------------------
+# phase 6j: the distributed drivers
+# ---------------------------------------------------------------------------
+
+PART_FIELDS = ("src_row", "dst_col", "w", "eid", "valid")
+PART_STATICS = ("rows", "cols", "shard_size", "n", "n_pad")
+
+
+def save_partition(part, path: Path) -> None:
+    """A ``Partition2D`` as one .npy per array and its statics as JSON."""
+    import numpy as np
+
+    path.mkdir(parents=True, exist_ok=True)
+    for f in PART_FIELDS:
+        np.save(path / f"{f}.npy", getattr(part, f))
+    (path / "statics.json").write_text(json.dumps({k: getattr(part, k) for k in PART_STATICS}))
+
+
+def load_partition(path: Path):
+    """:func:`save_partition`'s partition, its arrays mapped copy-on-write
+    (a rank copies only its own block)."""
+    import numpy as np
+
+    from repro_torch.graphs.partition import Partition2D
+
+    arrays = {f: np.load(path / f"{f}.npy", mmap_mode="c") for f in PART_FIELDS}
+    return Partition2D(**arrays, **json.loads((path / "statics.json").read_text()))
+
+
+def dist_digest(rep) -> dict:
+    """A dist report as JSON-able values: the arrays by hash."""
+    import hashlib
+
+    import numpy as np
+
+    def h(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    return {"weight": rep.weight, "msf_eids": h(rep.msf_eids), "parent": h(rep.parent),
+            "n_msf_edges": rep.n_msf_edges, "iterations": rep.iterations,
+            "levels": [list(map(int, lv)) for lv in rep.levels],
+            "host_roundtrips": rep.host_roundtrips}
+
+
+def grid_independent(digest: dict) -> dict:
+    """A coarsen digest without the levels' m and m_next columns: they
+    count per-block entries (a pair deduped per block survives once per
+    rank holding it), so they depend on the grid."""
+    out = dict(digest)
+    out["levels"] = [[n, n_next, hooked] for n, _, n_next, _, hooked in digest["levels"]]
+    return out
+
+
+def dist_coarsen_launches(levels, n: int, cfg: list, residual_iters: int) -> dict:
+    """The launches a dist coarsen solve must make, from its levels (rows
+    of (n, m, n_next, m_next, hooked)), the graph's n, its config
+    ``[rounds_per_level, max_levels, cutoff]`` and its residual rounds:
+    every level, a stalled last one included, makes 2 flat segment-mins
+    per hook round and then dedupes once (the sorted kernel); every
+    residual round makes 2 flat ones."""
+    k, max_levels, cutoff = cfg
+    residual_n, residual_m = (levels[-1][2], levels[-1][3]) if levels else (n, 0)
+    stalled = int(len(levels) < max_levels and residual_n > cutoff and residual_m > 0)
+    return {"segment_min_flat": 2 * k * (len(levels) + stalled) + 2 * residual_iters,
+            "segment_min_sorted": len(levels) + stalled}
+
+
+def turn_times(fns: dict, reps: int = 3) -> dict:
+    """Median seconds of each callable, in turns after one warm-up each,
+    every call ended by a device sync."""
     import torch
 
-    from repro_torch.solve import plan
-
-    times = {k: [] for k in specs}
-    for k in specs:
-        plan(g, specs[k]).solve()
-    order = list(specs)
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    order = list(fns)
     for i in range(reps):
         for k in (order if i % 2 == 0 else order[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            plan(g, specs[k]).solve()
+            fns[k]()
             torch.cuda.synchronize()
             times[k].append(time.perf_counter() - t0)
     return {f"{k}_s": statistics.median(v) for k, v in times.items()}
+
+
+DIST_RANK = r"""
+import json, os, statistics, sys, time
+from datetime import timedelta
+from pathlib import Path
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.environ["ROOT"])
+from chip_smoke import (dist_digest, load_partition, read_counts, reset_counts,
+                        DIST_GRID)
+from repro_torch.coarsen import CoarsenConfig
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.solve import SolveSpec, plan
+
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dist.init_process_group(os.environ["BACKEND"], store=dist.FileStore(os.environ["STORE"], world),
+                        rank=rank, world_size=world, timeout=timedelta(seconds=240))
+mesh = make_mesh(DIST_GRID, ("data", "model"))
+out = {"rank": rank, "device": str(mesh.device), "backend": mesh.backend}
+# CUDA tensors, every dtype and op the port's collectives use.
+axes = ("data", "model")
+for dt in (torch.int32, torch.int64, torch.float32, torch.float64):
+    x = torch.full((3,), rank + 1, dtype=dt, device=mesh.device)
+    for op, want in (("min", 1), ("max", world), ("sum", world * (world + 1) // 2)):
+        if mesh.all_reduce(x, op, axes).tolist() != [want] * 3:
+            raise RuntimeError(f"all_reduce {op} of {dt} on {mesh.device} is wrong")
+    if mesh.all_gather(x, axes).tolist() != [r + 1 for r in range(world) for _ in range(3)]:
+        raise RuntimeError(f"all_gather of {dt} on {mesh.device} is wrong")
+out["collectives"] = "all_gather, all_reduce min/max/sum of int32/int64/float32/float64"
+# pack=True: the plan's probe, like the reference's, counts the R*C*Emax
+# slots of a 2x2 partition of R-MAT s20 as pack32 positions (more than
+# 2^24), though only its eids (< 2^24) enter the keys; 1x1 resolves pack32.
+for label, spec in (("flat rmat_s20_ef8", SolveSpec(mode="dist", pack=True)),
+                    ("coarsen grid_1024x1024",
+                     SolveSpec(mode="dist", coarsen=CoarsenConfig(), dedupe="device"))):
+    part = load_partition(Path(os.environ["DIST_DIR"]) / label.split()[1])
+    p = plan(part, spec, mesh=mesh)
+    reset_counts()
+    rep = p.solve()
+    torch.cuda.synchronize()
+    row = {"digest": dist_digest(rep), "launches": read_counts(),
+           "segmin_flat_is_kernel": p.resolved.segmin_flat is ops.segment_min_flat}
+    if p.resolved.coarsen is not None:
+        cfg = p.resolved.coarsen
+        row["residual_iters"] = p.driver.last_stats.residual_iters
+        row["cfg"] = [cfg.rounds_per_level, cfg.max_levels, cfg.cutoff]
+        row["n"] = part.n
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p.solve()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    row["median_s"] = statistics.median(times)
+    out[label] = row
+with open(os.environ["OUT"], "w") as f:
+    json.dump(out, f)
+dist.barrier()
+os._exit(0)  # leave without tearing the gloo groups down under the other ranks
+"""
+
+
+def dist_grid_ranks(parts: dict, workdir: Path, backend: str = "gloo") -> list:
+    """Run :data:`DIST_RANK` as ``prod(DIST_GRID)`` processes over
+    ``backend`` (rank r on ``cuda:{r % device_count}``: gloo shares one
+    card, NCCL needs a card per rank), on ``parts`` (label →
+    Partition2D) saved under ``workdir``; every rank's JSON row. Fails if
+    a rank fails or the group outlives :data:`DIST_JOIN_TIMEOUT_S`; kills
+    every rank either way."""
+    import math
+    import os
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    for label, part in parts.items():
+        save_partition(part, workdir / label)
+    world = math.prod(DIST_GRID)
+    # Two intra-op threads per rank: four ranks share the host's cores.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), ROOT=str(ROOT), GLOO_SOCKET_IFNAME="lo",
+               OMP_NUM_THREADS="2", WORLD_SIZE=str(world), STORE=str(workdir / "store"),
+               DIST_DIR=str(workdir), BACKEND=backend)
+    procs = []
+    try:
+        for r in range(world):
+            log = open(workdir / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", DIST_RANK], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT,
+                env=dict(env, RANK=str(r), OUT=str(workdir / f"rank{r}.json"))), log))
+        deadline = time.monotonic() + DIST_JOIN_TIMEOUT_S
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+            if p.returncode != 0:
+                break
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            print((workdir / f"rank{r}.log").read_text()[-3000:], file=sys.stderr)
+        fail(f"dist 2x2: ranks {bad} failed or outlived {DIST_JOIN_TIMEOUT_S} s")
+    rows = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(world)]
+    shutil.rmtree(workdir, ignore_errors=True)
+    return rows
+
+
+def dist_path(g_rmat, g_rmat19, g_grid, flat_rep, coarsen_reps, device="cuda"):
+    """Phase 6j: ``(row, launches)``. ``flat_rep``: phase 5's flat report
+    (its weight checked against scipy there); ``coarsen_reps``: 6b's and
+    6c's coarsen reports by graph label. ``device="cpu"`` rehearses the
+    1x1 half on a gloo group (the kernel checks then fail, as they must)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.coarsen import CoarsenConfig
+    from repro_torch.coarsen.relabel import canonical_minvertex_labels
+    from repro_torch.graphs.partition import partition_edges_2d
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.solve import SolveSpec, clear_plan_cache, plan
+
+    on_card = device == "cuda"
+    dist.init_process_group("nccl" if on_card else "gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    row = {}
+    launches = {"segment_min_flat": {}, "segment_min_sorted": {}}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=None if on_card else device)
+        print(f"  {mesh}", flush=True)
+        t0 = time.perf_counter()
+        part = partition_edges_2d(g_rmat, 1, 1)
+        print(f"  rmat_s20_ef8 1x1 partition: e_max={part.e_max}, "
+              f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+        n = g_rmat.n
+        flat_eids = set(flat_rep.msf_eids.tolist())
+        flat_weight64 = eid_weight(g_rmat, flat_rep.msf_eids)
+        flat_labels = canonical_minvertex_labels(flat_rep.parent, n).numpy()
+        flat_row = {}
+        for sc in ("csp", "os", "baseline"):
+            label = f"dist rmat_s20_ef8 {sc} 1x1"
+            p = plan(part, SolveSpec(mode="dist", shortcut=sc), mesh=mesh)
+            check(p.resolved.pack is True, f"{label}: pack32 not resolved")
+            check(p.resolved.segmin_flat is ops.segment_min_flat,
+                  f"{label}: the resolved segment-min is not the CUDA kernel")
+            reset_counts()
+            rep = p.solve()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(0 < counts["segment_min_flat"] == rep.iterations,
+                  f"{label}: {counts['segment_min_flat']} flat launches for "
+                  f"{rep.iterations} rounds")
+            weight64 = eid_weight(g_rmat, rep.msf_eids)
+            check(weight64 == flat_weight64,
+                  f"{label}: weight {weight64} != the flat solve's (scipy's) {flat_weight64}")
+            check(rep.n_msf_edges == flat_rep.n_msf_edges,
+                  f"{label}: {rep.n_msf_edges} edges != {flat_rep.n_msf_edges}")
+            check(set(rep.msf_eids.tolist()) == flat_eids,
+                  f"{label}: eid set differs from the flat solve's")
+            check(np.array_equal(canonical_minvertex_labels(rep.parent[:n], n).numpy(),
+                                 flat_labels), f"{label}: partition differs from the flat solve's")
+            plain = plan(part, SolveSpec(mode="dist", shortcut=sc, segmin="torch"),
+                         mesh=mesh).solve()
+            check(same_report(rep, plain), f"{label}: report differs from segmin='torch'")
+            launches["segment_min_flat"][label] = counts["segment_min_flat"]
+            flat_row[sc] = {"rounds": rep.iterations, "launches": counts,
+                            "host_syncs_per_solve": count_syncs(p.solve),
+                            "digest": dist_digest(rep)}
+            print(f"  {label}: rounds={rep.iterations} launches={counts} weight={weight64} "
+                  f"syncs={flat_row[sc]['host_syncs_per_solve']}", flush=True)
+        flat_row["times"] = turn_times({
+            "flat": plan(g_rmat, SolveSpec()).solve,
+            **{f"dist_{sc}_1x1": plan(part, SolveSpec(mode="dist", shortcut=sc),
+                                      mesh=mesh).solve for sc in ("csp", "os", "baseline")}})
+        row["flat rmat_s20_ef8"] = flat_row
+        print(f"  medians: {json.dumps(flat_row['times'])}", flush=True)
+
+        coarsen_parts = {}
+        for label, g in (("rmat_s19_ef8", g_rmat19), ("grid_1024x1024", g_grid)):
+            tag = f"dist coarsen {label} 1x1"
+            coarsen_parts[label] = part_c = partition_edges_2d(g, 1, 1)
+            spec = SolveSpec(mode="dist", coarsen=CoarsenConfig(), dedupe="device")
+            p = plan(part_c, spec, mesh=mesh)
+            reset_counts()
+            rep = p.solve()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            st = p.driver.last_stats
+            check(len(rep.levels) > 0 and rep.host_roundtrips == st.host_roundtrips == 0,
+                  f"{tag}: {len(rep.levels)} levels, {rep.host_roundtrips} host round trips")
+            cfg = p.resolved.coarsen
+            want = dist_coarsen_launches([list(lv) for lv in rep.levels], g.n,
+                                         [cfg.rounds_per_level, cfg.max_levels, cfg.cutoff],
+                                         st.residual_iters)
+            check(counts == want, f"{tag}: launches {counts}, expected {want}")
+            ref = coarsen_reps[label]
+            check(set(rep.msf_eids.tolist()) == set(ref.msf_eids.tolist()),
+                  f"{tag}: eid set differs from the coarsen solve's")
+            check(np.array_equal(rep.parent, ref.parent),
+                  f"{tag}: partition differs from the coarsen solve's")
+            check(eid_weight(g, rep.msf_eids) == eid_weight(g, ref.msf_eids),
+                  f"{tag}: weight differs from the coarsen solve's")
+            for kernel, k in counts.items():
+                launches[kernel][tag] = k
+            row[f"coarsen {label}"] = {
+                "levels": [list(map(int, lv)) for lv in rep.levels],
+                "residual_iters": st.residual_iters, "rounds": rep.iterations,
+                "launches": counts, "host_syncs_per_solve": count_syncs(p.solve),
+                "digest": dist_digest(rep),
+                "times": turn_times({"coarsen": plan(g, SolveSpec(mode="coarsen")).solve,
+                                     "dist_coarsen_1x1": p.solve}),
+            }
+            print(f"  {tag}: {json.dumps({k: v for k, v in row[f'coarsen {label}'].items() if k != 'digest'})}",
+                  flush=True)
+        clear_plan_cache()
+
+        t0 = time.perf_counter()
+        grid = partition_edges_2d(g_rmat, *DIST_GRID), partition_edges_2d(g_grid, *DIST_GRID)
+        ranks = dist_grid_ranks({"rmat_s20_ef8": grid[0], "grid_1024x1024": grid[1]},
+                                build.BUILD_DIR / "dist_grid")
+        del grid
+        tag = "x".join(map(str, DIST_GRID))
+        for label, one, same in (
+                ("flat rmat_s20_ef8", flat_row["csp"]["digest"], dict),
+                ("coarsen grid_1024x1024", row["coarsen grid_1024x1024"]["digest"],
+                 grid_independent)):
+            want = same(json.loads(json.dumps(one)))
+            for r in ranks:
+                got = r[label]
+                check(same(got["digest"]) == want,
+                      f"dist {label} {tag}, rank {r['rank']}: report differs from the 1x1 "
+                      f"report")
+                check(r["device"].startswith("cuda") and r["backend"] == "gloo",
+                      f"dist {tag}, rank {r['rank']}: {r['backend']} on {r['device']}")
+                check(got["segmin_flat_is_kernel"],
+                      f"dist {label} {tag}, rank {r['rank']}: the resolved segment-min is "
+                      f"not the CUDA kernel")
+                if "cfg" in got:
+                    want_l = dist_coarsen_launches(got["digest"]["levels"], got["n"], got["cfg"],
+                                                   got["residual_iters"])
+                else:
+                    want_l = {"segment_min_flat": got["digest"]["iterations"],
+                              "segment_min_sorted": 0}
+                check(got["launches"] == want_l,
+                      f"dist {label} {tag}, rank {r['rank']}: launches {got['launches']}, "
+                      f"expected {want_l}")
+            row[f"{label} {tag} (four ranks sharing one card)"] = {
+                "median_s_by_rank": [r[label]["median_s"] for r in ranks],
+                "launches_per_rank": ranks[0][label]["launches"]}
+            for kernel, k in ranks[0][label]["launches"].items():
+                if k:
+                    launches[kernel][f"dist {label} {tag} (per rank)"] = k
+        print(f"  {tag} over gloo, {len(ranks)} ranks on one card: every rank's report equal to "
+              f"the others' and to 1x1; medians by rank "
+              f"{[r['flat rmat_s20_ef8']['median_s'] for r in ranks]} (flat), "
+              f"{[r['coarsen grid_1024x1024']['median_s'] for r in ranks]} (coarsen) "
+              f"({time.perf_counter() - t0:.1f} s with partitions and start-up)", flush=True)
+    finally:
+        clear_plan_cache()
+        dist.destroy_process_group()
+    return row, launches
+
+
+def dist_cards():
+    """The 2x2 grid with one NCCL rank per card, on a host with four cards:
+
+        python3 -c "import chip_smoke; chip_smoke.dist_cards()"
+
+    Builds the kernels, solves phase 5's graph (Fig-2, ``pack=True``) and
+    the grid (dist levels) 1x1 on NCCL in this process and 2x2 as four
+    processes on four cards, checks every rank's report against the 1x1
+    one (as phase 6j does) and each rank's launches, and prints the
+    medians beside the 1x1 ones and the single-card flat (coarsen) solve."""
+    import torch
+    import torch.distributed as dist
+
+    if torch.cuda.device_count() < 4:
+        fail(f"dist_cards needs four cards, found {torch.cuda.device_count()}")
+    from repro_torch.coarsen import CoarsenConfig
+    from repro_torch.graphs import grid_road_graph, rmat_graph
+    from repro_torch.graphs.partition import partition_edges_2d
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.solve import SolveSpec, clear_plan_cache, plan
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    print(f"cards: {smi}", flush=True)
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    build.build_all()
+    graphs = {"flat rmat_s20_ef8": rmat_graph(**RMAT, device="cuda"),
+              "coarsen grid_1024x1024": grid_road_graph(*GRID, device="cuda")}
+    specs = {"flat rmat_s20_ef8": (SolveSpec(mode="dist", pack=True), SolveSpec()),
+             "coarsen grid_1024x1024": (
+                 SolveSpec(mode="dist", coarsen=CoarsenConfig(), dedupe="device"),
+                 SolveSpec(mode="coarsen"))}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    one = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for label, g in graphs.items():
+            p = plan(partition_edges_2d(g, 1, 1), specs[label][0], mesh=mesh)
+            one[label] = {"digest": dist_digest(p.solve()),
+                          **turn_times({"dist_1x1": p.solve,
+                                        "one_card": plan(g, specs[label][1]).solve})}
+    finally:
+        clear_plan_cache()
+        dist.destroy_process_group()
+    ranks = dist_grid_ranks({k.split()[1]: partition_edges_2d(g, *DIST_GRID)
+                             for k, g in graphs.items()},
+                            build.BUILD_DIR / "dist_cards", backend="nccl")
+    check(sorted(r["device"] for r in ranks) == [f"cuda:{i}" for i in range(len(ranks))],
+          f"dist_cards: ranks not one per card: {[r['device'] for r in ranks]}")
+    row = {}
+    for label, same in (("flat rmat_s20_ef8", dict), ("coarsen grid_1024x1024", grid_independent)):
+        want = same(json.loads(json.dumps(one[label]["digest"])))
+        for r in ranks:
+            got = r[label]
+            check(r["backend"] == "nccl" and got["segmin_flat_is_kernel"],
+                  f"dist_cards {label}, rank {r['rank']}: {r['backend']}, not the kernel")
+            check(same(got["digest"]) == want,
+                  f"dist_cards {label}, rank {r['rank']}: report differs from the 1x1 report")
+            want_l = (dist_coarsen_launches(got["digest"]["levels"], got["n"], got["cfg"],
+                                            got["residual_iters"]) if "cfg" in got else
+                      {"segment_min_flat": got["digest"]["iterations"], "segment_min_sorted": 0})
+            check(got["launches"] == want_l,
+                  f"dist_cards {label}, rank {r['rank']}: launches {got['launches']}, "
+                  f"expected {want_l}")
+        row[label] = {**{k: v for k, v in one[label].items() if k != "digest"},
+                      "dist_2x2_nccl_median_s_by_rank": [r[label]["median_s"] for r in ranks],
+                      "launches_per_rank": ranks[0][label]["launches"]}
+    print(json.dumps({"dist_cards_2x2_nccl": row, "cards": smi}))
+
+
+def solve_times(g, specs: dict, reps: int = 3) -> dict:
+    """Median end-to-end solve seconds of each spec (planning included),
+    in turns after one warm-up each."""
+    from repro_torch.solve import plan
+
+    return turn_times({k: partial(lambda s: plan(g, s).solve(), s) for k, s in specs.items()},
+                      reps)
 
 
 def segmin_bytes(keys, n) -> tuple[int, int]:
@@ -2289,13 +2734,13 @@ def main():
 
     from repro_torch.solve import SolveSpec, plan
 
-    coarsen_launches = {}
+    coarsen_launches, coarsen_reps = {}, {}
     flat_reps = {"rmat_s20_ef8": plan(g_rmat, SolveSpec()).solve(),
                  "grid_1024x1024": plan(g_grid, SolveSpec()).solve()}
     for ph, label, g in (("6b", "rmat_s19_ef8", g_rmat19), ("6c", "grid_1024x1024", g_grid)):
         phase(f"{ph} coarsen path: {label}")
         flat_rep = flat_reps[label] if label in flat_reps else plan(g, SolveSpec()).solve()
-        coarsen_launches[label], _ = coarsen_path(label, g, flat_rep)
+        coarsen_launches[label], coarsen_reps[label] = coarsen_path(label, g, flat_rep)
 
     phase("6d kernel entry points at real size")
     t0 = time.perf_counter()
@@ -2405,6 +2850,13 @@ def main():
     loadgen_rows, loadgen_launches = loadgen_path()
     print(json.dumps({"loadgen": loadgen_rows, "card": smi}))
     print(f"  phase 6i (tuner, load harness) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("6j distributed drivers: 1x1 on NCCL, 2x2 over gloo on the one card")
+    t0 = time.perf_counter()
+    dist_row, dist_launches = dist_path(g_rmat, g_rmat19, g_grid, flat_reps["rmat_s20_ef8"],
+                                        coarsen_reps)
+    print(json.dumps({"dist": dist_row, "card": smi}))
+    print(f"  phase 6j took {time.perf_counter() - t0:.1f} s", flush=True)
     mean_dense = {k: statistics.fmean(r[k] for r in dense_rows) for k in fields
                   if k != "library_ms"}
     mean_bucketed = {k: statistics.fmean(r[k] for r in bucket_rows) for k in fields}
@@ -2425,7 +2877,8 @@ def main():
             "serve rmat_s20_ef8 inserts": serve_row["insert_launches"],
             "serve rmat_s20_ef8 delete": serve_row["delete_launches"],
             **{k: v["segment_min_flat"] for k, v in tune_launches.items()},
-            **loadgen_launches},
+            **loadgen_launches,
+            **dist_launches["segment_min_flat"]},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
@@ -2449,7 +2902,8 @@ def main():
                                 for k, v in coarsen_launches.items()},
                              **stream_launches(stream_a, stream_b, "segment_min_sorted"),
                              **{k: v["segment_min_sorted"] for k, v in tune_launches.items()
-                                if k.startswith("tune coarsen")}},
+                                if k.startswith("tune coarsen")},
+                             **dist_launches["segment_min_sorted"]},
         "matches_plain": True,
         "max_abs_err": max_err_sorted,
         "ms": mean_sorted["kernel_ms"],

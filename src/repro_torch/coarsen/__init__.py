@@ -1,6 +1,7 @@
 # Borůvka contract-and-filter coarsening (counterpart of repro.coarsen):
-# contract-and-filter levels feeding the flat AS solve. The distributed
-# levels and the Partition2D pre-contraction are not ported yet.
+# contract-and-filter levels feeding the flat AS solve, the Partition2D
+# pre-contraction for the distributed engine, and the distributed levels
+# on a torch.distributed rank grid (repro_torch.coarsen.dist).
 from repro_torch.coarsen.config import CoarsenConfig
 from repro_torch.coarsen.contract import ContractResult, contract_level, contract_level_und
 from repro_torch.coarsen.engine import (
@@ -11,8 +12,11 @@ from repro_torch.coarsen.engine import (
     LevelStats,
     coarsen_msf,
     fused_level,
+    merge_distributed,
+    precontract_partition,
     run_levels,
 )
+from repro_torch.coarsen.dist import DistCoarsenMSF, DistCoarsenStats
 from repro_torch.coarsen.filter import (
     FilterResult,
     filter_level,

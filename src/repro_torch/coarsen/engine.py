@@ -52,6 +52,7 @@ from repro_torch.coarsen.filter import (
 )
 from repro_torch.coarsen.relabel import canonical_minvertex_labels, rank_relabel
 from repro_torch.core.msf import MSFResult, flat_msf
+from repro_torch.graphs.partition import Partition2D, partition_edges_2d
 from repro_torch.graphs.structures import IMAX, Graph
 from repro_torch.obs.trace import trace_span
 
@@ -408,3 +409,39 @@ def coarsen_msf(graph: Graph, *, config: CoarsenConfig | None = None,
     if fused is not None:
         cfg = dataclasses.replace(cfg, fused=fused)
     return CoarsenMSF(cfg, segmin=segmin, **msf_kw)(graph)
+
+
+# ---------------------------------------------------------------------------
+# Partition2D-aware pre-contraction for the distributed engine
+# ---------------------------------------------------------------------------
+
+def precontract_partition(graph: Graph, rows: int, cols: int, *,
+                          config: CoarsenConfig | None = None
+                          ) -> Tuple[Partition2D, CoarsenPrelude]:
+    """Coarsen on one device first, then 2D-partition only the residual.
+
+    The Fig-2 schedule pays all-gathers proportional to n and local work
+    proportional to a rank's edge block; both shrink with the contracted
+    residual. Fold the distributed result back into original-graph ids
+    with :func:`merge_distributed`. The in-mesh levels
+    (``repro_torch.coarsen.dist.DistCoarsenMSF``) run the same levels on
+    the grid instead; this host-prelude pipeline is their baseline.
+    """
+    prelude = run_levels(graph, config)
+    return partition_edges_2d(prelude.residual, rows, cols), prelude
+
+
+def merge_distributed(prelude: CoarsenPrelude, dist_result) -> MSFResult:
+    """Combine a ``DistMSFResult`` over the residual with the prelude;
+    ``iterations`` adds the rounds the levels ran to the distributed
+    solve's."""
+    dev = prelude.label_map.device
+    n_f = int(dist_result.n_msf_edges)
+    return _finalize(
+        prelude,
+        torch.as_tensor(dist_result.parent).to(dev),
+        torch.as_tensor(dist_result.msf_eids)[:n_f].to(dev),
+        float(dist_result.weight),
+        int(dist_result.iterations),
+        prelude.label_map.numel(),
+    )

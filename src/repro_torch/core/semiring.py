@@ -104,6 +104,21 @@ def combine_edgemin(a: EdgeMin, b: EdgeMin) -> EdgeMin:
     return EdgeMin(w=w, eid=eid, payload=payload)
 
 
+def allreduce_argmin(em: EdgeMin, mesh, axis) -> EdgeMin:
+    """Cross-rank MINWEIGHT combine over ``axis`` of a
+    :class:`~repro_torch.launch.mesh.Mesh`: the paper's ⊕-reduction over
+    processor-grid columns (§IV-A), as 2 + len(payload) masked
+    all-reduce(min) passes. Every rank along ``axis`` gets the result."""
+    minw = mesh.all_reduce(em.w, "min", axis)
+    on_min = em.w == minw
+    mineid = mesh.all_reduce(torch.where(on_min, em.eid, IMAX), "min", axis)
+    winner = on_min & (em.eid == mineid)
+    payload = tuple(
+        mesh.all_reduce(torch.where(winner, p, IMAX), "min", axis) for p in em.payload
+    )
+    return EdgeMin(w=minw, eid=mineid, payload=payload)
+
+
 # ---------------------------------------------------------------------------
 # pack32 fast path (paper's integer-weight regime: w in [0, 255], idx < 2^24)
 # ---------------------------------------------------------------------------

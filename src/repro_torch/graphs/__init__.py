@@ -17,3 +17,10 @@ from repro_torch.graphs.generators import (
     random_graph,
     rmat_graph,
 )
+from repro_torch.graphs.partition import (
+    Partition2D,
+    block_global_ids,
+    pad_n,
+    partition_edges_1d,
+    partition_edges_2d,
+)

@@ -1,8 +1,9 @@
 # Solver API of the port: declarative SolveSpec → resolve → plan →
-# SolveReport. The flat, coarsen and stream engines are registered so far.
+# SolveReport. The flat, coarsen, dist and stream engines are registered.
 #
 #     from repro_torch.solve import SolveSpec, plan
 #     report = plan(graph, SolveSpec()).solve()
+#     report = plan(part, SolveSpec(mode="dist"), mesh=mesh).solve()  # every rank
 #     p = plan(n, SolveSpec(mode="stream"), device="cpu"); p.update(u, v, w)
 #
 # The autotuner's database surface is re-exported; ``tune()`` itself lives

@@ -1,5 +1,5 @@
-"""Built-in engines behind ``repro_torch.solve.plan``: ``mode="flat"``,
-``mode="coarsen"`` and ``mode="stream"`` are ported so far. Builders
+"""Built-in engines behind ``repro_torch.solve.plan``, one per mode:
+``"flat"``, ``"coarsen"``, ``"dist"`` and ``"stream"``. Builders
 receive a *resolved* spec — every backend choice is already concrete;
 engines never auto-detect (the coarsen levels resolve their pack32 regime
 per run, and the stream engine tracks it per batch, as in the
@@ -70,6 +70,49 @@ def _build_coarsen(target, rs: ResolvedSpec, mesh):
 
 
 register_engine("coarsen", _build_coarsen, cacheable=True)
+
+
+class _DistEngine:
+    """The flat Fig-2 driver, or with ``coarsen=`` the distributed levels,
+    on the plan's mesh. Both read only the partition's static fields
+    outside a call, so same-shape partitions share the engine."""
+
+    def __init__(self, part, rs: ResolvedSpec, mesh):
+        s = rs.spec
+        self._coarsen = rs.coarsen is not None
+        if self._coarsen:
+            from repro_torch.coarsen.dist import DistCoarsenMSF
+
+            self.driver = DistCoarsenMSF(part, mesh, rs.coarsen, row_axis=s.row_axis,
+                                         col_axis=s.col_axis, max_iters=s.max_iters)
+        else:
+            from repro_torch.core.msf_dist import build_dist_driver
+
+            self.driver = build_dist_driver(
+                part, mesh, row_axis=s.row_axis, col_axis=s.col_axis, shortcut=rs.shortcut,
+                capacity=s.capacity, max_iters=s.max_iters, pack=bool(rs.pack),
+                segmin=rs.segmin_flat,
+            )
+
+    def solve(self, part, src_row=None, dst_col=None, w=None, eid=None,
+              valid=None) -> SolveReport:
+        if src_row is None:
+            args = (part.src_row, part.dst_col, part.w, part.eid, part.valid)
+        else:
+            args = (src_row, dst_col, w, eid, valid)
+        r = self.driver(*args)
+        if self._coarsen:
+            st = self.driver.last_stats
+            return report_from_msf_result("dist", r, levels=st.levels,
+                                          host_roundtrips=st.host_roundtrips)
+        return report_from_msf_result("dist", r)
+
+
+def _build_dist(target, rs: ResolvedSpec, mesh):
+    return _DistEngine(target, rs, mesh)
+
+
+register_engine("dist", _build_dist, cacheable=True)
 
 
 class _StreamPlanEngine:

@@ -6,15 +6,17 @@ shape, mesh) key up in a bounded per-process cache, and wraps the cached
 engine in a cheap :class:`Plan` handle:
 
     report = plan(graph, SolveSpec()).solve()
+    report = plan(part, SolveSpec(mode="dist"), mesh=mesh).solve()  # every rank
     p = plan(n, SolveSpec(mode="stream"))   # on the card; device="cpu" there
     p.update(u, v, w)                       # stream mode only
     p.query(u, v)                           # stream mode only
 
 Engines are target-free: the cache stores machinery, never the target's
 tensors. Stream plans are stateful (they own a forest) and are not
-cached. ``mode="flat"``, ``"coarsen"`` and ``"stream"`` are registered in
-the port so far; ``"dist"`` raises ``NotImplementedError`` naming the
-ROADMAP item that brings it. Each engine built carries its analytic
+cached. ``mode="flat"``, ``"coarsen"``, ``"dist"`` and ``"stream"`` are
+registered. A dist plan is SPMD: every rank of the mesh plans the same
+``Partition2D`` and calls ``solve()``, and every rank gets the same
+report. Each engine built carries its analytic
 :class:`~repro_torch.solve.cost.PlanCost` (``Plan.cost``, and
 ``SolveReport.cost`` of every call), computed once from shapes.
 
@@ -41,11 +43,6 @@ from repro_torch.solve.report import SolveReport
 from repro_torch.solve.spec import MODES, ResolvedSpec, SolveSpec
 
 PLAN_CACHE_MAXSIZE = 64
-
-#: Built-in modes without a port yet, and where the ROADMAP schedules them.
-_NOT_PORTED = {
-    "dist": "ROADMAP Queue 1 item 12",
-}
 
 _lock = threading.Lock()
 _cache: "OrderedDict[Any, Any]" = OrderedDict()  # key -> engine (LRU)
@@ -88,6 +85,10 @@ def _shape_key(target) -> tuple:
         return ("none",)
     if isinstance(target, (int, np.integer)):
         return ("n", int(target))
+    shard = getattr(target, "shard_size", None)
+    if shard is not None:  # Partition2D
+        return ("part2d", target.rows, target.cols, target.e_max, target.n, target.n_pad,
+                shard)
     src = getattr(target, "src", None)
     if src is not None:  # Graph
         return ("graph", target.n, int(src.shape[0]))
@@ -129,12 +130,14 @@ def plan(target, spec: SolveSpec | None = None, *, mesh=None, device=None,
          **overrides) -> "Plan":
     """Compile ``spec`` against ``target`` into a reusable :class:`Plan`.
 
-    ``target``: a port ``Graph`` (flat / coarsen), or an ``int`` vertex
-    count or ``Graph`` (stream — only ``n`` is read). Keyword
-    ``overrides`` are folded into the spec (``plan(g, pack=False)``). The
-    plan runs on the device where a graph's tensors live; for a target
-    without tensors, on the type of ``device`` (``None`` = ``"cuda"``,
-    which raises without a card once an engine needs it).
+    ``target``: a port ``Graph`` (flat / coarsen), a host ``Partition2D``
+    of the original graph plus ``mesh=`` (dist: a
+    :class:`~repro_torch.launch.mesh.Mesh`), or an ``int`` vertex count or
+    ``Graph`` (stream — only ``n`` is read). Keyword ``overrides`` are
+    folded into the spec (``plan(g, pack=False)``). The plan runs on the
+    device where a graph's tensors live; a dist plan on the mesh's device;
+    for a target without tensors, on the type of ``device`` (``None`` =
+    ``"cuda"``, which raises without a card once an engine needs it).
     """
     if spec is None:
         spec = SolveSpec(**overrides)
@@ -142,16 +145,17 @@ def plan(target, spec: SolveSpec | None = None, *, mesh=None, device=None,
         spec = dataclasses.replace(spec, **overrides)
     edef = _engines.get(spec.mode)
     if edef is None:
-        if spec.mode in _NOT_PORTED:
-            raise NotImplementedError(
-                f"mode={spec.mode!r} is not ported yet ({_NOT_PORTED[spec.mode]})"
-            )
         raise ValueError(
             f"no engine registered for mode {spec.mode!r} "
             f"(registered: {registered_modes()})"
         )
+    if spec.mode == "dist" and mesh is None:
+        raise ValueError("mode='dist' needs a mesh= (a repro_torch.launch.mesh.Mesh)")
     on_graph = isinstance(getattr(target, "src", None), torch.Tensor)
-    backend = None if device is None or on_graph else torch.device(device).type
+    if spec.mode == "dist":
+        backend = mesh.device.type
+    else:
+        backend = None if device is None or on_graph else torch.device(device).type
     with obs.enabled(spec.obs):
         with obs.span("plan.resolve", mode=spec.mode):
             resolved = spec.resolve(target, backend=backend, mesh=mesh)
@@ -191,6 +195,14 @@ class Plan:
     @property
     def mode(self) -> str:
         return self.spec.mode
+
+    @property
+    def driver(self):
+        """The engine-native callable (dist mode: the block driver, or the
+        ``DistCoarsenMSF`` instance with ``coarsen=``), called with the
+        partition's five [R, C, Emax] arrays; ``None`` for engines
+        without one."""
+        return getattr(self._engine, "driver", None)
 
     @property
     def engine(self):
@@ -244,7 +256,8 @@ class Plan:
     def solve(self, *args, **kw) -> SolveReport:
         """Run the full solve for this plan's target; flat plans accept
         ``parent0=`` (array-like, moved to the graph's device) for warm
-        starts."""
+        starts, dist plans the five block arrays positionally in place of
+        the target's own."""
         return self._observed("", lambda: self._engine.solve(self.target, *args, **kw))
 
     # -- stream-mode surfaces -------------------------------------------

@@ -2,9 +2,8 @@
 
 ``SolveSpec`` is a frozen, hashable description of *which* MSF engine to
 run (``mode``) and *how* (backend knobs). It has the fields and static
-validation of ``repro.solve.spec.SolveSpec``; ``mode="flat"``,
-``mode="coarsen"`` and ``mode="stream"`` have engines in the port so far
-(``repro_torch.solve.engines``).
+validation of ``repro.solve.spec.SolveSpec``; every built-in mode has an
+engine (``repro_torch.solve.engines``).
 
 This module is also the single home of the backend auto-detect rules.
 Where the JAX package keys on ``jax.default_backend() == "tpu"``, the
@@ -154,8 +153,9 @@ class SolveSpec:
     reservoir_capacity: int = 4096
     reservoir_per_component: int = 256
     exact_deletes: bool = True
-    # dist mode
-    row_axis: str = "data"
+    # dist mode: the mesh axes of the grid's rows (a name, or a tuple of
+    # names flattened row-major) and columns
+    row_axis: str | tuple = "data"
     col_axis: str = "model"
     # observability: "off" | "metrics" | "trace"
     obs: str = "off"

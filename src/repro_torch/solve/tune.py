@@ -132,6 +132,8 @@ def _target_nm(target) -> Optional[tuple[int, int]]:
     src = getattr(target, "src", None)
     if src is not None:  # Graph
         return int(target.n), int(src.shape[0])
+    if getattr(target, "shard_size", None) is not None:  # Partition2D
+        return int(target.n), int(target.rows * target.cols * target.e_max)
     return None
 
 
@@ -142,8 +144,9 @@ def _device_count(backend: str) -> int:
 def key_for(mode: str, target, *, backend: str | None = None,
             mesh=None, device_count: int | None = None) -> TuneKey:
     """The database key of ``target`` under ``mode``: ``backend`` defaults
-    to the target graph's device type (``"cuda"`` for a target without
-    tensors). Raises ``ValueError`` for targets without a shape."""
+    to the mesh's device type for a dist plan, else to the target graph's
+    (``"cuda"`` for a target without tensors). Raises ``ValueError`` for
+    targets without a shape."""
     from repro_torch.solve.spec import _target_device_type
 
     nm = _target_nm(target)
@@ -152,7 +155,9 @@ def key_for(mode: str, target, *, backend: str | None = None,
             f"cannot derive a tuning key from target of type "
             f"{type(target).__name__}"
         )
-    backend = backend or _target_device_type(target)
+    mesh_device = getattr(mesh, "device", None)
+    backend = backend or (mesh_device.type if mesh_device is not None
+                          else _target_device_type(target))
     return TuneKey(
         shape_class=shape_class(*nm),
         weights=weights_class(target),
@@ -646,6 +651,10 @@ def tune(target, mode: str = "flat", *, mesh=None, backend: str | None = None,
     [seconds]`` replaces the clock. Every measured candidate's forest
     weight and MSF edge set are asserted identical. ``db.put`` stores the
     winner under :func:`key_for`'s key; the caller owns ``db.save``.
+
+    With ``mesh=`` (mode ``"dist"``) every rank of the mesh calls ``tune``
+    alike: each sample is the slowest rank's (an all-reduce max), which is
+    what a distributed solve takes, and every rank elects the same winner.
     """
     from repro_torch.solve.planner import plan
 
@@ -654,7 +663,8 @@ def tune(target, mode: str = "flat", *, mesh=None, backend: str | None = None,
     kept, n_pruned = prune_by_cost(target, candidates, ratio=ratio, min_keep=min_keep)
     if not kept:
         raise ValueError(f"no measurable candidates for {key}")
-    device = getattr(getattr(target, "src", None), "device", None)
+    device = getattr(getattr(target, "src", None), "device", None) or getattr(mesh, "device",
+                                                                             None)
 
     order = list(range(len(kept)))
     np.random.default_rng(seed).shuffle(order)
@@ -680,6 +690,9 @@ def tune(target, mode: str = "flat", *, mesh=None, backend: str | None = None,
         else:
             samples = _measure_samples(p.solve, warmup=max(warmup - 1, 0), iters=iters,
                                        device=device)
+        if mesh is not None:
+            samples = mesh.all_reduce(torch.tensor(samples, dtype=torch.float64, device=device),
+                                      "max", mesh.axis_names).tolist()
         med, iqr = _median_iqr(samples)
         results.append(CandidateResult(cand, med, iqr, predicted))
 

@@ -168,3 +168,132 @@ def apply_op(engine, name, args):
     """Run one trace op on a ``StreamEngine`` of either package."""
     return {"insert": engine.insert_batch, "delete": engine.delete_batch,
             "compact": engine.compact, "recertify": engine.recertify}[name](*args)
+
+
+# ---------------------------------------------------------------------------
+# distributed plans: a group of spawned ranks on a FileStore
+# ---------------------------------------------------------------------------
+
+RANK_PRELUDE = """
+import os, pickle
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+RANK, WORLD = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dist.init_process_group("gloo", store=dist.FileStore(os.environ["STORE"], WORLD),
+                        rank=RANK, world_size=WORLD, timeout=timedelta(seconds=60))
+with open(os.environ["INPUTS"], "rb") as f:
+    INPUTS = pickle.load(f)
+OUT = {}
+"""
+
+# Every rank waits for the others and then leaves without tearing its
+# gloo groups down: a rank whose peers have already exited can abort in
+# the teardown ("terminate called without an active exception").
+RANK_EPILOGUE = """
+with open(os.environ["OUT"], "wb") as f:
+    pickle.dump(OUT, f)
+dist.barrier()
+os._exit(0)
+"""
+
+
+def start_ranks(body: str, world: int, inputs, workdir):
+    """Start ``world`` ranks of a gloo group (one interpreter each, on a
+    ``FileStore`` under ``workdir``: no TCP rendezvous port). Each runs
+    ``body`` with ``RANK``, ``WORLD``, ``INPUTS`` (``inputs``, pickled)
+    and fills the dict ``OUT``. Returns a handle for :func:`join_ranks`."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    with open(workdir / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), GLOO_SOCKET_IFNAME="lo",
+               OMP_NUM_THREADS="1", WORLD_SIZE=str(world), STORE=str(workdir / "store"),
+               INPUTS=str(workdir / "inputs.pkl"))
+    code = RANK_PRELUDE + body + RANK_EPILOGUE
+    procs = []
+    for r in range(world):
+        log = open(workdir / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code], cwd=root, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(env, RANK=str(r), OUT=str(workdir / f"rank{r}.pkl"))), log))
+    return workdir, procs
+
+
+def join_ranks(handle, timeout: float = 120.0) -> list:
+    """Wait for every rank of :func:`start_ranks` at most ``timeout``
+    seconds in all; on a timeout or any failure kill the rest and fail
+    with the ranks' logs. Returns each rank's ``OUT``."""
+    import pickle
+    import subprocess
+    import time
+
+    workdir, procs = handle
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+            if p.returncode != 0:
+                break
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        logs = "\n".join(f"--- rank {r} (exit {procs[r][0].returncode}) ---\n"
+                         + (workdir / f"rank{r}.log").read_text()[-3000:] for r in bad)
+        raise AssertionError(f"ranks {bad} of {len(procs)} failed or timed out:\n{logs}")
+    out = []
+    for r in range(len(procs)):
+        with open(workdir / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def report_fields(rep) -> dict:
+    """A ``SolveReport`` of either package as plain host values: the fields
+    that both packages hold to one contract (not ``raw``, ``cost``,
+    ``timings``)."""
+    return {
+        "mode": rep.mode,
+        "weight": float(rep.weight),
+        "msf_eids": to_np(rep.msf_eids),
+        "parent": to_np(rep.parent),
+        "n_msf_edges": int(rep.n_msf_edges),
+        "iterations": int(rep.iterations),
+        "levels": tuple(tuple(int(x) for x in lv) for lv in rep.levels),
+        "host_roundtrips": int(rep.host_roundtrips),
+    }
+
+
+def assert_same_fields(want: dict, got: dict):
+    """Two dicts of host values (arrays compared exactly, with dtypes)."""
+    assert sorted(got) == sorted(want)
+    for k in want:
+        a, b = want[k], got[k]
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(b, a, err_msg=k)
+            assert np.asarray(b).dtype == a.dtype, k
+        else:
+            assert b == a, k
+
+
+def stats_fields(st) -> tuple:
+    """A ``DistCoarsenStats`` of either package as plain ints."""
+    return (tuple(tuple(int(x) for x in lv) for lv in st.levels), int(st.residual_n),
+            int(st.residual_m), int(st.residual_iters), int(st.host_roundtrips))

@@ -1,7 +1,8 @@
 """Tests of the port that need the card (marker ``gpu``): the CUDA kernels
 against their plain versions, and the flat, coarsen and stream paths,
 connectivity and SSSP on the card against the CPU, the tuner and the load
-harness on the card. Elsewhere they skip. Run them on an H100 with
+harness on the card, and a 1×1 NCCL dist plan. Elsewhere they skip. Run
+them on an H100 with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -454,3 +455,66 @@ def test_loadgen_on_the_card(card, tmp_path):
     proc = subprocess.run([sys.executable, str(root / "tools" / "check_slo_report.py"), str(out)],
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
+
+
+_NCCL_1X1 = r"""
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.coarsen import CoarsenConfig
+from repro_torch.graphs import rmat_graph
+from repro_torch.graphs.partition import partition_edges_2d
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.solve import SolveSpec, plan
+
+def fields(r):
+    return (r.weight, r.msf_eids.tolist(), r.parent.tolist(), r.n_msf_edges, r.iterations,
+            tuple(map(tuple, r.levels)), r.host_roundtrips)
+
+dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+mesh = make_mesh((1, 1), ("data", "model"))
+assert mesh.backend == "nccl" and mesh.device.type == "cuda", mesh
+g = rmat_graph(12, 8, seed=3, device="cuda")
+part = partition_edges_2d(g, 1, 1)
+flat = plan(g, SolveSpec()).solve()
+for sc in ("csp", "os", "baseline"):
+    p = plan(part, SolveSpec(mode="dist", shortcut=sc), mesh=mesh)
+    assert p.resolved.pack and p.resolved.segmin_flat is ops.segment_min_flat
+    before = ops.segment_min_flat.launches
+    rep = p.solve()
+    torch.cuda.synchronize()
+    assert ops.segment_min_flat.launches - before == rep.iterations, sc
+    assert rep.weight == flat.weight and rep.n_msf_edges == flat.n_msf_edges, sc
+    assert set(rep.msf_eids.tolist()) == set(flat.msf_eids.tolist()), sc
+    plain = plan(part, SolveSpec(mode="dist", shortcut=sc, segmin="torch"), mesh=mesh).solve()
+    assert fields(plain) == fields(rep), sc
+cfg = CoarsenConfig(cutoff=16, dedupe="device")
+coarse = plan(g, SolveSpec(mode="coarsen", coarsen=cfg)).solve()
+p = plan(part, SolveSpec(mode="dist", coarsen=cfg), mesh=mesh)
+before = ops.segment_min_sorted.launches
+rep = p.solve()
+torch.cuda.synchronize()
+assert len(rep.levels) >= 1 and rep.host_roundtrips == 0
+assert ops.segment_min_sorted.launches - before >= len(rep.levels)
+assert set(rep.msf_eids.tolist()) == set(coarse.msf_eids.tolist())
+assert np.array_equal(rep.parent, coarse.parent) and rep.weight == coarse.weight
+print("NCCL_1X1_OK")
+dist.destroy_process_group()
+"""
+
+
+def test_dist_1x1_nccl_on_the_card(card):
+    """A world-1 NCCL group in a fresh interpreter: the flat dist plan
+    (csp, os, baseline) launches the flat kernel once per round and agrees
+    with the flat solve and with its plain segment-min twin; the dist
+    coarsen plan dedupes on the card (sorted kernel) and agrees with the
+    coarsen solve."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-c", _NCCL_1X1], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert "NCCL_1X1_OK" in proc.stdout, proc.stdout + proc.stderr[-3000:]

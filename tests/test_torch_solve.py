@@ -131,13 +131,17 @@ def test_spec_static_validation(kw):
         tsolve.SolveSpec(**kw)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mode="dist"), "item 12"),
+@pytest.mark.parametrize("kw,match", [
+    (dict(mode="dist"), "needs a mesh"),
 ])
-def test_unported_surfaces_raise(kw, item):
+def test_unported_surfaces_raise(kw, match):
+    """Every built-in mode is ported; ``mode="dist"`` without ``mesh=``
+    raises ``ValueError``, as in the reference."""
     g = cpu_graph(random_graph(10, 20, seed=0))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=match):
         tsolve.plan(g, tsolve.SolveSpec(**kw))
+    with pytest.raises(ValueError, match="needs a mesh"):
+        jsolve.plan(random_graph(10, 20, seed=0), jsolve.SolveSpec(**kw))
 
 
 def test_plan_cache_and_registry(monkeypatch):
@@ -153,7 +157,7 @@ def test_plan_cache_and_registry(monkeypatch):
     assert p3.engine is not p1.engine and p3.spec.pack is False
     assert p1.cost is p2.cost and p1.cost.analyzed == "flat" and "flat" in repr(p1)
     assert p3.cost != p1.cost  # the float path moves other bytes
-    assert tsolve.registered_modes() == ("flat", "coarsen", "stream")
+    assert tsolve.registered_modes() == ("flat", "coarsen", "dist", "stream")
     tsolve.clear_plan_cache()
     assert tsolve.plan_cache_info()[0] == 0
     # a registered mode becomes a legal spec mode and plans through its builder
@@ -167,5 +171,5 @@ def test_plan_cache_and_registry(monkeypatch):
             return target.n
 
     tsolve.register_engine("echo", lambda target, rs, mesh: _Echo())
-    assert tsolve.registered_modes() == ("flat", "coarsen", "stream", "echo")
+    assert tsolve.registered_modes() == ("flat", "coarsen", "dist", "stream", "echo")
     assert tsolve.plan(g1, mode="echo").solve() == g1.n
