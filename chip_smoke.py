@@ -136,6 +136,27 @@ Phases:
      rounds, host syncs, launches and median solve times beside the flat
      and coarsen solves' medians (four ranks on one card are not a
      distributed measurement);
+  6k. the GNN and recsys trainer (run last, after 6j, outside any
+     profiler session): (a) `repro_torch.launch.train.run` on the card for
+     gat-cora, meshgraphnet, gatedgcn, nequip and xdeepfm at their smoke
+     configs, 60 steps (nequip 200: its learning rate warms up over 100),
+     each loss falling; gat-cora crashed at step 17 and resumed from its
+     checkpoints, its last loss within rel 1e-4 of the uninterrupted run's
+     (index_add_ on the card adds in no fixed order); each arch's first
+     step on the card from the CPU's weights, its loss within rel 1e-4 of
+     the CPU's, every parameter and optimizer tensor on the card. (b) each
+     GNN at its published CONFIG on the registry's shape cell: gat-cora at
+     full_graph_sm (make_planted_graph_task, 2,708 nodes, 21,112 edges,
+     1,433 features), gatedgcn and meshgraphnet at minibatch_lg (one
+     NeighborSampler draw of 1,024 seeds, fanouts (15, 10), over phase 5's
+     CSR, padded to (169,984, 168,960), 602 features and targets planted
+     on the draw), nequip at molecule (MoleculeBatchSource(30, 64, 128));
+     xdeepfm at 120M rows through build_training("xdeepfm", full=True)
+     (batch 256), then recsys_serve_step at serve_p99 (512) and
+     recsys_retrieval_step at retrieval_cand (1 query, 10^6 candidates,
+     top 100, against a full sort): per run the median step ms over 5
+     steps after 2, the allocator's peak, the first and last loss
+     (finite) and the card; none of the four kernels launched;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -216,6 +237,23 @@ FLAT_RMAT_SYNCS = 40
 # Phase 6j: the 2x2 grid as four processes on the one card, over gloo.
 DIST_GRID = (2, 2)
 DIST_JOIN_TIMEOUT_S = 300
+# Phase 6k: the trainer. nequip runs 200 steps: the reference's own run()
+# does not lower its smoke loss in 60 (263.58 -> 274.75 on the CPU; the
+# learning rate warms up over 100 steps), it does by 100 (231.87).
+TRAIN_ARCHS = ("gat-cora", "meshgraphnet", "gatedgcn", "nequip", "xdeepfm")
+TRAIN_STEPS = 60
+TRAIN_STEPS_OF = {"nequip": 200}
+TRAIN_FAULT_AT = 17
+# index_add_ on the card adds in no fixed order, so two runs of the same
+# steps round apart; both tolerances are float32 rounding over 60 steps.
+TRAIN_RESUME_REL = 1e-4
+TRAIN_CARD_CPU_REL = 1e-4
+MINIBATCH_PAD = (169_984, 168_960)  # max_sample_sizes(1024, (15, 10))
+FULL_WARMUP, FULL_TIMED = 2, 5
+SERVE_REPS = 12
+RETRIEVAL_K = 100
+KERNEL_NAMES = ("segment_min_flat", "segment_min_sorted", "multilinear_dense",
+                "segment_min_bucketed")
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
 # dense n x n float32 adjacency (1 GiB and 64 MiB).
 DENSE_GRAPHS = {"rmat_s14_ef8": dict(scale=14, edge_factor=8, seed=1),
@@ -1070,7 +1108,8 @@ def stream_labels(p):
 def reset_counts():
     from repro_torch.kernels import ops
 
-    ops.segment_min_flat.launches = ops.segment_min_sorted.launches = 0
+    for k in KERNEL_NAMES:
+        getattr(ops, k).launches = 0
 
 
 def read_counts() -> dict:
@@ -2521,6 +2560,346 @@ def dist_cards():
     print(json.dumps({"dist_cards_2x2_nccl": row, "cards": smi}))
 
 
+# ---------------------------------------------------------------------------
+# phase 6k: the GNN and recsys trainer
+# ---------------------------------------------------------------------------
+
+def train_args(**kw):
+    import types
+
+    d = dict(arch="gat-cora", steps=TRAIN_STEPS, seed=0, ckpt_dir=None, ckpt_every=10,
+             fault_at=None, supervise=False)
+    d.update(kw)
+    return types.SimpleNamespace(**d)
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import ops
+
+    return {k: getattr(ops, k).launches for k in KERNEL_NAMES}
+
+
+def on_card(tree) -> bool:
+    """Every tensor of a params dict or an AdamWState on the card."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.is_cuda
+    if isinstance(tree, dict):
+        return all(on_card(v) for v in tree.values())
+    return all(on_card(v) for v in tree)
+
+
+def train_smoke(workdir: Path, device="cuda") -> dict:
+    """Phase 6k (a): ``launch.train.run`` on the card for every GNN and
+    recsys arch at its smoke config, a fault and resume, and the first
+    step's loss on the card against the CPU's on the same weights."""
+    import torch
+
+    from repro_torch.launch import train
+
+    rows = {}
+    for arch in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        out = train.run(train_args(arch=arch, steps=TRAIN_STEPS_OF.get(arch, TRAIN_STEPS),
+                                   device=device))
+        torch.cuda.synchronize()
+        check(out["last_loss"] < out["first_loss"],
+              f"train {arch}: loss {out['first_loss']} -> {out['last_loss']} did not fall")
+        rows[arch] = {**out, "seconds": time.perf_counter() - t0}
+    args = train_args(ckpt_dir=str(workdir / "gat-cora"), ckpt_every=5, fault_at=TRAIN_FAULT_AT,
+                      device=device)
+    try:
+        train.run(args)
+        fail("train gat-cora: the injected fault did not fire")
+    except train.FaultInjected:
+        pass
+    resumed = train.run(args)
+    diff = abs(resumed["last_loss"] - rows["gat-cora"]["last_loss"])
+    check(diff <= TRAIN_RESUME_REL * abs(rows["gat-cora"]["last_loss"]),
+          f"train gat-cora: resumed last loss {resumed['last_loss']} against "
+          f"{rows['gat-cora']['last_loss']} uninterrupted")
+    rows[f"gat-cora resumed after a fault at step {TRAIN_FAULT_AT}"] = {**resumed,
+                                                                      "abs_diff": diff}
+    first_step = {}
+    for arch in TRAIN_ARCHS:
+        cpu_p, cpu_o, cpu_step = train.build_training(arch, device="cpu")
+        p, o, step = train.build_training(arch, device=device)
+        with torch.no_grad():
+            for k in p:
+                p[k].copy_(cpu_p[k])
+        _, o, m = step(p, o, 0)
+        check(on_card(p) and on_card(o), f"train {arch}: state off the card")
+        want = float(cpu_step(cpu_p, cpu_o, 0)[2]["loss"])
+        rel = abs(float(m["loss"]) - want) / abs(want)
+        check(rel <= TRAIN_CARD_CPU_REL,
+              f"train {arch}: first-step loss {float(m['loss'])} on the card, {want} on the CPU")
+        first_step[arch] = {"card": float(m["loss"]), "cpu": want, "rel_diff": rel}
+    rows["first step, card vs CPU"] = first_step
+    return rows
+
+
+def plant_on_draw(sub, d_feat: int, n_out: int, classify: bool, seed: int, device) -> dict:
+    """A batch on the card from one sampler draw: features on the valid
+    nodes and targets from own plus mean-neighbour features through a
+    seeded projection, as ``make_planted_graph_task`` plants them; the loss
+    is taken on the seed nodes."""
+    import torch
+
+    from repro_torch.models.gnn import segment_sum
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    put = partial(torch.as_tensor, device=device)
+    src, dst, ev = put(sub.src), put(sub.dst), put(sub.edge_valid)
+    n = len(sub.node_ids)
+    x = torch.randn((n, d_feat), generator=gen, device=device) * put(sub.node_valid)[:, None]
+    w_true = torch.randn((d_feat, n_out), generator=gen, device=device)
+    agg = segment_sum(x[src] * ev[:, None], dst, n)
+    deg = torch.clamp(segment_sum(ev.float(), dst, n), min=1)[:, None]
+    planted = (x + agg / deg) @ w_true
+    mask = torch.zeros(n, device=device)
+    mask[:sub.n_seeds] = 1
+    batch = dict(src=src, dst=dst, edge_valid=ev, x=x, node_mask=mask)
+    if classify:
+        batch["labels"] = planted.argmax(-1).to(torch.int32)
+    else:
+        batch["targets"] = planted
+    return batch
+
+
+def memory_mark() -> int:
+    """Bytes allocated now; the allocator's peak restarts from here."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def time_training(label: str, shape: str, params, opt, step_fn, smi: str, resident: int) -> dict:
+    """Median step ms over ``FULL_TIMED`` steps after ``FULL_WARMUP``, the
+    allocator's peak since ``resident`` was marked (before the model was
+    built), the first and last loss (finite), printed as one line."""
+    import math
+
+    import torch
+
+    losses, times = [], []
+    for i in range(FULL_WARMUP + FULL_TIMED):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    check(on_card(params) and on_card(opt), f"train {label}: state off the card")
+    check(all(math.isfinite(v) for v in losses), f"train {label}: losses {losses}")
+    row = {"arch": label, "shape": shape,
+           "step_ms_median": statistics.median(times[FULL_WARMUP:]) * 1e3,
+           "step_ms": [t * 1e3 for t in times],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "resident_before": resident,
+           "own_peak_bytes": torch.cuda.max_memory_allocated() - resident,
+           "first_loss": losses[0], "last_loss": losses[-1]}
+    print(json.dumps({"train_full_width": row, "card": smi}), flush=True)
+    return row
+
+
+def padding_cost(sub, width: int, device) -> dict:
+    """Device ms of one ``segment_sum`` of the draw's [E_pad, width] rows by
+    destination (the forward of every aggregation, the gradient of every
+    gather): as padded, where every padded edge lands on node 0, and over
+    the valid edges alone."""
+    import torch
+
+    from repro_torch.models.gnn import segment_sum
+
+    dst = torch.as_tensor(sub.dst, device=device)
+    ev = torch.as_tensor(sub.edge_valid, device=device)
+    rows = torch.ones((len(dst), width), device=device)
+    n = len(sub.node_ids)
+    return {"padded_ms": time_ms(lambda: segment_sum(rows, dst, n)),
+            "valid_only_ms": time_ms(lambda: segment_sum(rows[ev], dst[ev], n)),
+            "padded_edges": int((~ev).sum()), "width": width}
+
+
+def train_full(g_rmat, smi: str, device="cuda") -> list:
+    """Phase 6k (b): each GNN at its published CONFIG on the registry's
+    shape cell, xDeepFM at 120M rows through ``build_training(full=True)``,
+    then its serve and retrieval steps."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import MoleculeBatchSource, make_planted_graph_task
+    from repro_torch.graphs import to_csr
+    from repro_torch.graphs.sampler import NeighborSampler, max_sample_sizes
+    from repro_torch.launch import train
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import steps as S
+
+    def cfg_at(arch, shape):
+        cell = registry.get_shape(arch, shape)
+        return dataclasses.replace(registry.get_config(arch), d_in=cell.d_feat), cell
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def gnn_run(arch, shape, init, batch, n_graphs=1):
+        cfg = cfg_at(arch, shape)[0]
+        resident = memory_mark()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init(cfg, gen, device).params
+        batches = batch if isinstance(batch, list) else None
+
+        def step_fn(p, o, i):
+            b = batches[i] if batches else batch
+            return S.gnn_train_step(p, o, b, cfg, n_graphs)
+
+        return time_training(arch, shape, params, adamw_init(params), step_fn, smi, resident)
+
+    rows = []
+    cfg, cell = cfg_at("gat-cora", "full_graph_sm")
+    task = make_planted_graph_task(cell.n_nodes, 2 * cell.n_edges, cell.d_feat, cfg.n_classes, 0)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in task.items()}
+    batch["node_mask"] = torch.ones(cell.n_nodes, device=device)
+    rows.append(gnn_run("gat-cora", "full_graph_sm", G.init_gat, batch))
+    del task, batch
+    free()
+
+    cell = registry.get_shape("gatedgcn", "minibatch_lg")
+    t0 = time.perf_counter()
+    indptr, indices, _, _ = to_csr(g_rmat)
+    deg = np.diff(indptr)
+    seeds = np.random.default_rng(0).choice(np.flatnonzero(deg), cell.batch_nodes, replace=False)
+    sub = NeighborSampler(indptr, indices, seed=0).sample(seeds, cell.fanout)
+    check((len(sub.node_ids), len(sub.src)) == max_sample_sizes(cell.batch_nodes, cell.fanout)
+          == MINIBATCH_PAD, f"train: sampler padding {len(sub.node_ids)}, {len(sub.src)}")
+    print(f"  minibatch_lg draw: {int(sub.node_valid.sum())} nodes, {int(sub.edge_valid.sum())} "
+          f"edges of {MINIBATCH_PAD} ({time.perf_counter() - t0:.1f} s, host)", flush=True)
+    n_e = len(sub.src)
+    pad = padding_cost(sub, registry.get_config("gatedgcn").d_hidden, device)
+    print(json.dumps({"minibatch_lg_segment_sum": pad, "card": smi}), flush=True)
+    batch = plant_on_draw(sub, cell.d_feat, registry.get_config("gatedgcn").n_classes, True, 1,
+                          device)
+    batch["e_feat"] = torch.ones((n_e, 1), device=device)
+    rows.append(gnn_run("gatedgcn", "minibatch_lg", G.init_gatedgcn, batch))
+    del batch
+    free()
+    batch = plant_on_draw(sub, cell.d_feat, registry.get_config("meshgraphnet").d_out, False, 2,
+                          device)
+    batch["e_feat"] = torch.randn((n_e, 4), device=device,
+                                  generator=torch.Generator(device=device).manual_seed(3))
+    rows.append(gnn_run("meshgraphnet", "minibatch_lg", G.init_meshgraphnet, batch))
+    del batch, sub
+    free()
+
+    cell = registry.get_shape("nequip", "molecule")
+    src = MoleculeBatchSource(cell.n_nodes, cell.n_edges, cell.batch_graphs, seed=0)
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in src.batch_at(i).items()}
+               for i in range(FULL_WARMUP + FULL_TIMED)]  # built before the timed steps
+    rows.append(gnn_run("nequip", "molecule", G.init_nequip, batches, cell.batch_graphs))
+    del batches
+    free()
+
+    resident = memory_mark()
+    params, opt, step_fn = train.build_training("xdeepfm", full=True, device=device)
+    rows.append(time_training("xdeepfm", "train (batch 256, the reference's full path)", params,
+                              opt, step_fn, smi, resident))
+    del params, opt, step_fn
+    free()
+
+    cfg = registry.get_config("xdeepfm")
+    offs, sizes = R.field_offsets(cfg)
+    gen = torch.Generator(device=device).manual_seed(4)
+    rng = np.random.default_rng(4)
+
+    def ids_of(b):
+        vals = (rng.pareto(1.2, size=(b, cfg.n_sparse)) * 3).astype(np.int64) % sizes
+        return torch.as_tensor((offs[None, :] + vals).astype(np.int32), device=device)
+
+    for shape, init, call, check_out in (
+            ("serve_p99", lambda c: R.init_xdeepfm(c, gen, device),
+             lambda p, ids, c: S.recsys_serve_step(p, ids, c), serve_ok),
+            ("retrieval_cand", lambda c: R.init_retrieval(
+                c, registry.get_shape("xdeepfm", "retrieval_cand").n_candidates, gen, device),
+             lambda p, ids, c: S.recsys_retrieval_step(p, ids, c, k=RETRIEVAL_K), retrieval_ok)):
+        cell = registry.get_shape("xdeepfm", shape)
+        resident = memory_mark()
+        model = init(cfg)
+        ids = ids_of(cell.batch)
+        times = []
+        for _ in range(SERVE_REPS):
+            t0 = time.perf_counter()
+            out = call(model.params, ids, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        check_out(model.params, ids, cfg, out)
+        row = {"arch": "xdeepfm", "shape": shape, "batch": cell.batch,
+               "step_ms_median": statistics.median(times[2:]) * 1e3,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "resident_before": resident,
+               "own_peak_bytes": torch.cuda.max_memory_allocated() - resident}
+        print(json.dumps({"train_full_width": row, "card": smi}), flush=True)
+        rows.append(row)
+        del model, out
+        free()
+    return rows
+
+
+def serve_ok(params, ids, cfg, probs):
+    import torch
+
+    from repro_torch.models import recsys as R
+
+    check(probs.shape == (ids.shape[0],) and bool(torch.isfinite(probs).all()),
+          "serve_p99: probabilities not finite")
+    with torch.no_grad():
+        want = torch.sigmoid(R.xdeepfm_logits(params, ids, cfg))
+    check(torch.allclose(probs, want, rtol=1e-6, atol=0),
+          "serve_p99: probabilities differ from sigmoid(logits)")
+
+
+def retrieval_ok(params, ids, cfg, out):
+    """The top k against a full sort of the same scores on the card."""
+    import torch
+
+    from repro_torch.models import recsys as R
+
+    scores, idx = out
+    with torch.no_grad():
+        emb = R.embedding_bag(params["table"], ids).reshape(ids.shape[0], -1)
+        full = (emb @ params["tower_w"]) @ params["items"].T
+    want = torch.sort(full, dim=-1, descending=True).values[:, :RETRIEVAL_K]
+    check(bool(torch.isfinite(scores).all()) and torch.allclose(scores, want, rtol=1e-6, atol=0),
+          "retrieval_cand: the top k differ from a full sort")
+    check(torch.allclose(torch.gather(full, 1, idx), scores, rtol=1e-6, atol=0),
+          "retrieval_cand: indices off their scores")
+
+
+def train_path(g_rmat, smi: str, device="cuda") -> dict:
+    """Phase 6k: (a) and (b); returns the kernel launches of the whole
+    phase (the trainer runs none of the four kernels)."""
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    reset_counts()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        smoke = train_smoke(Path(tmp), device)
+    print(json.dumps({"train_smoke": smoke, "card": smi}), flush=True)
+    train_full(g_rmat, smi, device)
+    launches = all_launches()
+    check(not any(launches.values()), f"train: kernel launches {launches}, expected none")
+    return launches
+
+
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
     """Median end-to-end solve seconds of each spec (planning included),
     in turns after one warm-up each."""
@@ -2857,6 +3236,11 @@ def main():
                                         coarsen_reps)
     print(json.dumps({"dist": dist_row, "card": smi}))
     print(f"  phase 6j took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("6k the GNN and recsys trainer")
+    t0 = time.perf_counter()
+    train_launches = train_path(g_rmat, smi)
+    print(f"  phase 6k took {time.perf_counter() - t0:.1f} s", flush=True)
     mean_dense = {k: statistics.fmean(r[k] for r in dense_rows) for k in fields
                   if k != "library_ms"}
     mean_bucketed = {k: statistics.fmean(r[k] for r in bucket_rows) for k in fields}
@@ -2878,7 +3262,8 @@ def main():
             "serve rmat_s20_ef8 delete": serve_row["delete_launches"],
             **{k: v["segment_min_flat"] for k, v in tune_launches.items()},
             **loadgen_launches,
-            **dist_launches["segment_min_flat"]},
+            **dist_launches["segment_min_flat"],
+            "train": train_launches["segment_min_flat"]},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
@@ -2903,7 +3288,8 @@ def main():
                              **stream_launches(stream_a, stream_b, "segment_min_sorted"),
                              **{k: v["segment_min_sorted"] for k, v in tune_launches.items()
                                 if k.startswith("tune coarsen")},
-                             **dist_launches["segment_min_sorted"]},
+                             **dist_launches["segment_min_sorted"],
+                             "train": train_launches["segment_min_sorted"]},
         "matches_plain": True,
         "max_abs_err": max_err_sorted,
         "ms": mean_sorted["kernel_ms"],
@@ -2921,7 +3307,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/multilinear_dense.cu",
         "replaces": "src/repro/kernels/multilinear_dense.py:68",
         "launches": entry_launches["multilinear_dense"],
-        "launches_by_path": {"entry points": entry_launches["multilinear_dense"]},
+        "launches_by_path": {"entry points": entry_launches["multilinear_dense"],
+                             "train": train_launches["multilinear_dense"]},
         "matches_plain": True,
         "max_abs_err": max(max_err_dense, entry_err["multilinear_dense"]),
         "ms": mean_dense["kernel_ms"],
@@ -2940,7 +3327,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/segment_min_bucketed.cu",
         "replaces": "src/repro/kernels/segment_min_bucketed.py:62",
         "launches": entry_launches["segment_min_bucketed"],
-        "launches_by_path": {"entry points": entry_launches["segment_min_bucketed"]},
+        "launches_by_path": {"entry points": entry_launches["segment_min_bucketed"],
+                             "train": train_launches["segment_min_bucketed"]},
         "matches_plain": True,
         "max_abs_err": max(max_err_bucketed, entry_err["segment_min_bucketed"]),
         "ms": mean_bucketed["kernel_ms"],

@@ -3,8 +3,10 @@
 - Saves are atomic: write to ``step_<n>.tmp/``, then rename to
   ``step_<n>/`` with a ``DONE`` marker, so a crash mid-save never
   corrupts the latest restorable state.
-- Async: the device→host copy happens on the caller's thread; the
-  serialization runs on a background thread; ``wait_for_saves`` joins.
+- Async: the device→host copy happens on the caller's thread (a copy of
+  CPU tensors and arrays too, which the caller may go on updating in
+  place); the serialization runs on a background thread;
+  ``wait_for_saves`` joins.
 - The on-disk layout is the reference's (``arrays.npz``, ``meta.json``,
   ``DONE``), and every array is stored under the name
   ``jax.tree_util.tree_flatten_with_path`` gives its path: a checkpoint
@@ -28,8 +30,7 @@ from collections import OrderedDict, defaultdict
 from typing import Any, Optional
 
 import numpy as np
-
-from repro_torch.graphs.structures import host_array
+import torch
 
 _PENDING: list[threading.Thread] = []
 
@@ -79,10 +80,17 @@ def _rebuild(tree, leaves):
     return None
 
 
+def _host_copy(leaf) -> np.ndarray:
+    """A host copy of ``leaf`` that no later in-place update reaches."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, async_save: bool = True):
     os.makedirs(ckpt_dir, exist_ok=True)
     # Pull to host synchronously (cheap vs serialization), serialize async.
-    arrays = {name: host_array(leaf) for name, leaf in _leaves(tree)}
+    arrays = {name: _host_copy(leaf) for name, leaf in _leaves(tree)}
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp = final + ".tmp"
 

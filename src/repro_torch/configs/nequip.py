@@ -1,0 +1,14 @@
+"""NequIP — O(3)-equivariant interatomic potential [arXiv:2101.03164; paper]."""
+from repro_torch.configs.base import GNNConfig
+
+CONFIG = GNNConfig(
+    name="nequip", kind="nequip",
+    n_layers=5, d_hidden=32, l_max=2, n_rbf=8, cutoff=5.0,
+    aggregator="sum",
+)
+
+SMOKE = GNNConfig(
+    name="nequip-smoke", kind="nequip",
+    n_layers=2, d_hidden=8, l_max=2, n_rbf=8, cutoff=5.0,
+    aggregator="sum",
+)

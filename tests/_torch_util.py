@@ -33,6 +33,16 @@ def assert_same_msf(ref_report, port_report, *, exact_weight=True):
         assert port_report.weight == ref_report.weight
 
 
+def assert_rel_close(got, want, rel):
+    """``max |got - want| <= rel * max |want|`` over arrays of one shape (a
+    torch tensor, a jax or numpy array, or a list of numbers): a float32
+    tolerance relative to the largest entry, not to each entry."""
+    got, want = np.asarray(to_np(got), np.float64), np.asarray(to_np(want), np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.max(np.abs(got - want), initial=0)
+    assert err <= rel * max(np.max(np.abs(want), initial=0), 1e-30), (err, rel)
+
+
 def float64_weight(g, eids) -> float:
     """Float64 sum of the weights of ``eids`` in a (JAX or port) graph."""
     valid = to_np(g.valid)

@@ -1,7 +1,9 @@
 """Tests of the port that need the card (marker ``gpu``): the CUDA kernels
 against their plain versions, and the flat, coarsen and stream paths,
 connectivity and SSSP on the card against the CPU, the tuner and the load
-harness on the card, and a 1×1 NCCL dist plan. Elsewhere they skip. Run
+harness on the card, a 1×1 NCCL dist plan, and a train step of every GNN
+and recsys arch and the recsys serve and retrieval steps against the CPU.
+Elsewhere they skip. Run
 them on an H100 with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -518,3 +520,52 @@ def test_dist_1x1_nccl_on_the_card(card):
     proc = subprocess.run([sys.executable, "-c", _NCCL_1X1], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert "NCCL_1X1_OK" in proc.stdout, proc.stdout + proc.stderr[-3000:]
+
+
+def _same_start(card, arch):
+    """The trainer built on the CPU and on the card, the card's weights
+    copied from the CPU's."""
+    from repro_torch.launch import train
+
+    cpu = train.build_training(arch, device="cpu")
+    on_card = train.build_training(arch, device=card)
+    with torch.no_grad():
+        for k, p in on_card[0].items():
+            p.copy_(cpu[0][k])
+    return cpu, on_card
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "meshgraphnet", "gatedgcn", "nequip", "xdeepfm"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One train step per GNN arch and xDeepFM from the same weights: loss
+    and updated weights within rel 1e-4 of the CPU's (float32; the card's
+    index_add_ and matmuls sum in other orders), every tensor on the card."""
+    (cpu_p, cpu_o, cpu_step), (p, o, step) = _same_start(card, arch)
+    cpu_p, cpu_o, cpu_m = cpu_step(cpu_p, cpu_o, 0)
+    p, o, m = step(p, o, 0)
+    assert all(t.is_cuda for t in [*p.values(), *o.mu.values(), *o.nu.values(), o.step])
+    assert abs(float(m["loss"]) - float(cpu_m["loss"])) <= 1e-4 * abs(float(cpu_m["loss"]))
+    for k, w in cpu_p.items():
+        got = p[k].detach().cpu()
+        assert float((got - w.detach()).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30), k
+
+
+def test_recsys_serve_and_retrieval_on_card_match_cpu(card):
+    from repro_torch.configs import registry
+    from repro_torch.models import from_reference, recsys, to_reference
+    from repro_torch.train import steps
+
+    cfg = registry.get_config("xdeepfm", smoke=True)
+    offs, sizes = recsys.field_offsets(cfg)
+    rng = np.random.default_rng(0)
+    ids = (offs[None, :] + rng.integers(0, 1 << 20, (64, cfg.n_sparse)) % sizes).astype(np.int32)
+    ids[0, 0] = -7  # clipped on the card too, no device assert
+    for init, call in ((recsys.init_xdeepfm, steps.recsys_serve_step),
+                       (lambda c, device: recsys.init_retrieval(c, 5000, device=device),
+                        lambda p, i, c: steps.recsys_retrieval_step(p, i, c, k=10)[0])):
+        cpu = init(cfg, device="cpu")
+        dev = from_reference(init(cfg, device=card), to_reference(cpu))
+        want = call(cpu.params, torch.as_tensor(ids), cfg)
+        got = call(dev.params, torch.as_tensor(ids, device=card), cfg)
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
