@@ -157,6 +157,33 @@ Phases:
      top 100, against a full sort): per run the median step ms over 5
      steps after 2, the allocator's peak, the first and last loss
      (finite) and the card; none of the four kernels launched;
+  6l. the LM family (last, after 6k, in a fresh process: after a coarsen
+     sweep torch.profiler drops device events, and the full-width models
+     want the card's memory): (a) `launch.train.run` on the card for
+     qwen2-7b, mixtral-8x7b, qwen3-32b, command-r-35b and kimi-k2 at their
+     smoke configs, 60 steps, each loss falling; mixtral crashed at step
+     25 under `--supervise` and resumed, its last loss within rel 1e-3 of
+     the uninterrupted run's; each arch's first step on the card from the
+     CPU's weights within rel 1e-4 of the CPU's loss; the prefill/decode
+     check of tests/test_models_lm.py (3e-2). (b) `launch.serve.generate`
+     at full width: qwen2-7b's CONFIG (28 layers) with serve's default
+     request (batch 4, prompt 32, 16 tokens) and a 32,768-token prompt at
+     batch 1 with 64 tokens; mixtral-8x7b at 4 of 32 layers, an
+     8,192-token prompt (past the 4,096 window: the cache rolls) and 64
+     tokens; qwen3-32b at 8 of 64 layers, 4,096 and 32; per run the
+     prefill seconds, decode ms per token beside its bound (the float32
+     weights but the embedding table and the attended cache read once at
+     3.35 TB/s), tokens/s, the allocator's peak, and at the end the last
+     token decoded on the cache against a prefill of the whole sequence
+     (3e-2, scaled by the largest logit above 1); the blockwise
+     flash_attention on layer 0's q/k/v at 32k beside
+     F.scaled_dot_product_attention(is_causal=True) with the GQA heads
+     expanded, for the record. (c) lm_train_step at the train_4k cell's
+     4,096 tokens: qwen2-7b at 2 layers, batch 2; mixtral-8x7b at 1
+     layer, batch 1: median step ms over 5 after 2, peak, first and last
+     loss (finite). (d) torch.profiler over one qwen2-7b decode step on
+     the 32k cache and one layer's 32k prefill: top device operations and
+     the busy share. None of the four kernels launched;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -252,6 +279,43 @@ MINIBATCH_PAD = (169_984, 168_960)  # max_sample_sizes(1024, (15, 10))
 FULL_WARMUP, FULL_TIMED = 2, 5
 SERVE_REPS = 12
 RETRIEVAL_K = 100
+# Phase 6l: the LM family. The reference's own 60-step CPU run lowers every
+# LM arch's smoke loss (qwen2-7b 6.2495 -> 6.1905, mixtral-8x7b 6.2491 ->
+# 6.1907, qwen3-32b 6.2468 -> 6.1964, command-r-35b 6.2494 -> 6.1906,
+# kimi-k2 6.2468 -> 6.1902), so each runs 60 steps.
+LM_ARCHS = ("qwen2-7b", "mixtral-8x7b", "qwen3-32b", "command-r-35b", "kimi-k2-1t-a32b")
+LM_STEPS = 60
+LM_FAULT = ("mixtral-8x7b", 25)
+# bfloat16 matmuls whose float32 inputs differ in the last bit (an
+# embedding gradient summed by atomics in another order) may round a step
+# apart, so a resumed run and the uninterrupted one agree to bfloat16
+# rounding over 35 steps, not to float32's; the card against the CPU on
+# one step is held to the trainer's 1e-4.
+LM_RESUME_REL = 1e-3
+LM_CARD_CPU_REL = 1e-4
+# The prefill/decode bound of tests/test_models_lm.py (max abs logit
+# error); at full width it scales with the largest logit, when above 1,
+# and gives way to twice the model's measured bfloat16 noise (lm_serve).
+LM_PARITY = 3e-2
+# The float32 end check at full width: (batch, prompt, tokens), a prompt
+# past two 2,048-token chunks and the 4,096 window, and its bound
+# relative to the largest logit (float32 rounding over up to 28 layers).
+LM_CHECK = (1, 4_200, 8)
+LM_F32_REL = 1e-3
+# (arch, layers or None for all, requests (batch, prompt, tokens)): qwen2-7b
+# whole (30.5 GB of float32 weights) with launch.serve's default request,
+# then prefill_32k at batch 1 (cut from 32) and 64 decodes as decode_32k at
+# batch 1 (cut from 128: its cache alone would be 240 GB); mixtral-8x7b at
+# 4 of 32 layers (the whole model is 187 GB) past its 4,096 window;
+# qwen3-32b at 8 of 64 layers (qk_norm, head_dim 128 != d / h).
+LM_SERVE = (("qwen2-7b", None, ((4, 32, 16), (1, 32_768, 64))),
+            ("mixtral-8x7b", 4, ((1, 8_192, 64),)),
+            ("qwen3-32b", 8, ((1, 4_096, 32),)))
+# (arch, layers, batch) at the train_4k cell's 4,096 tokens (batch cut from
+# 256): parameters, gradients and AdamW moments of the whole qwen2-7b are
+# 122 GB.
+LM_TRAIN = (("qwen2-7b", 2, 2), ("mixtral-8x7b", 1, 1))
+LM_CHILD_TIMEOUT_S = 600
 KERNEL_NAMES = ("segment_min_flat", "segment_min_sorted", "multilinear_dense",
                 "segment_min_bucketed")
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
@@ -2900,6 +2964,391 @@ def train_path(g_rmat, smi: str, device="cuda") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6l: the LM family (run in a fresh process, see lm_child)
+# ---------------------------------------------------------------------------
+
+def smi_line() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def copy_tree(dst, src) -> None:
+    """Copy a parameter tree into another of the same structure, in place."""
+    import torch
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    with torch.no_grad():
+        for d, s in zip(tree_leaves(dst), tree_leaves(src), strict=True):
+            d.copy_(s)
+
+
+def lm_smoke(workdir: Path, device="cuda") -> dict:
+    """Phase 6l (a): ``launch.train.run`` on the card for every LM arch at
+    its smoke config, mixtral crashed and resumed under ``--supervise``,
+    the first step's loss on the card against the CPU's from the same
+    weights, and the prefill/decode check of tests/test_models_lm.py."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    rows = {}
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        out = train.run(train_args(arch=arch, steps=LM_STEPS, device=device))
+        torch.cuda.synchronize()
+        check(out["last_loss"] < out["first_loss"],
+              f"lm train {arch}: loss {out['first_loss']} -> {out['last_loss']} did not fall")
+        rows[arch] = {**out, "seconds": time.perf_counter() - t0}
+    arch, fault_at = LM_FAULT
+    resumed = train.main(["--arch", arch, "--steps", str(LM_STEPS), "--ckpt-dir",
+                          str(workdir / arch), "--ckpt-every", "5", "--fault-at", str(fault_at),
+                          "--supervise", "--device", device])
+    check(resumed["steps"] < LM_STEPS, f"lm train {arch}: the supervisor did not resume")
+    diff = abs(resumed["last_loss"] - rows[arch]["last_loss"])
+    check(diff <= LM_RESUME_REL * abs(rows[arch]["last_loss"]),
+          f"lm train {arch}: resumed last loss {resumed['last_loss']} against "
+          f"{rows[arch]['last_loss']} uninterrupted")
+    rows[f"{arch} under --supervise, faulted at step {fault_at}"] = {**resumed, "abs_diff": diff}
+    first_step, parity = {}, {}
+    for arch in LM_ARCHS:
+        cpu_p, cpu_o, cpu_step = train.build_training(arch, device="cpu")
+        p, o, step = train.build_training(arch, device=device)
+        copy_tree(p, cpu_p)
+        _, o, m = step(p, o, 0)
+        check(on_card(p) and on_card(o), f"lm train {arch}: state off the card")
+        want = float(cpu_step(cpu_p, cpu_o, 0)[2]["loss"])
+        rel = abs(float(m["loss"]) - want) / abs(want)
+        check(rel <= LM_CARD_CPU_REL,
+              f"lm train {arch}: first-step loss {float(m['loss'])} on the card, {want} on the CPU")
+        first_step[arch] = {"card": float(m["loss"]), "cpu": want, "rel_diff": rel}
+        cfg = registry.get_config(arch, smoke=True)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = T.init_lm(cfg, gen, device).params
+        toks = torch.randint(0, cfg.vocab, (2, 32), device=device, generator=gen)
+        full, _ = T.lm_prefill(params, toks, cfg)
+        _, cache = T.lm_prefill(params, toks[:, :-1], cfg)
+        want_t = min(cfg.sliding_window or 32, 32)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, want_t - v.shape[2]))
+                 for k, v in cache.items()}
+        dec, _ = T.lm_decode_step(params, toks[:, -1], cache, 31, cfg)
+        err = float((full - dec).abs().max())
+        check(err < LM_PARITY, f"lm {arch}: prefill vs decode max abs error {err}")
+        parity[arch] = err
+    rows["first step, card vs CPU"] = first_step
+    rows["prefill vs decode, max abs error"] = parity
+    return rows
+
+
+def lm_weight_bytes(params, active_experts=None) -> int:
+    """Bytes of the float32 weights one decode step must read: every
+    parameter but the embedding table, of which it gathers one row per
+    token (MoE: the routed experts' only, with ``active_experts``)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    total = 0
+    for k, v in params["layers"].items():
+        n = v.numel()
+        if active_experts is not None and k in ("ewi", "ewg", "ewo"):
+            n = n // v.shape[1] * active_experts
+        total += n * v.element_size()
+    return total + sum(t.numel() * t.element_size()
+                       for t in tree_leaves({k: v for k, v in params.items()
+                                             if k not in ("layers", "embed")}))
+
+
+def profile_call(fn, top: int = 10) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by kernel, and
+    the device's busy share of one unprofiled call's wall time."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = device_rows(fn)
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    return {"wall_ms": wall * 1e3, "device_ms": busy, "busy_share": busy / (wall * 1e3),
+            "top": [{"op": e.key[:70], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+                    for e in rows[:top]]}
+
+
+def sdpa_yardstick(params, toks, cfg) -> dict:
+    """The blockwise flash_attention (as lm_prefill calls it) on layer 0's
+    q/k/v of the prompt, beside F.scaled_dot_product_attention(is_causal)
+    on the same inputs with the GQA heads expanded: device times (CUDA
+    events around back-to-back calls), the library's achieved rate, and
+    the largest difference of their outputs. For the record: the port
+    does not call the library."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import flash_attention, rms_norm
+
+    with torch.no_grad():
+        lp = {k: v[0] for k, v in params["layers"].items()}
+        x = T._embed(params["embed"], toks, T.dtype_of(cfg.dtype))
+        q, k, v = T._qkv(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg,
+                         torch.arange(toks.shape[1], device=toks.device))
+        del x
+
+        def port():
+            return flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                                   q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+
+        b, s, kvh, g, hd = q.shape
+        qh = q.reshape(b, s, kvh * g, hd).transpose(1, 2)
+        kh = k.repeat_interleave(g, dim=2).transpose(1, 2)
+        vh = v.repeat_interleave(g, dim=2).transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+        err = float((port().reshape(b, s, -1).float()
+                     - library().transpose(1, 2).reshape(b, s, -1).float()).abs().max())
+        flops = 2 * b * kvh * g * s * s * hd  # QK^T and PV over the causal half
+        port_ms, library_ms = time_ms(port, reps=2, warmup=1), time_ms(library, reps=5, warmup=2)
+        return {"seq_len": s, "heads": kvh * g, "kv_heads": kvh, "head_dim": hd,
+                "flash_attention_ms": port_ms, "sdpa_ms": library_ms,
+                "sdpa_tflops": flops / library_ms / 1e9, "causal_flops": flops,
+                "max_abs_diff": err}
+
+
+def no_drop(cfg):
+    """``cfg`` with an MoE capacity that drops no token (every expert may
+    take every token). A decode, one token at a time, never exceeds an
+    expert's capacity; a prefill of many tokens may drop some from an
+    expert (the reference's capacity rule), which changes their hidden
+    states and so the cache, so an MoE end check runs under this config."""
+    import dataclasses
+
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def end_check(params, cfg, toks, tokens):
+    """``launch.serve.generate``, then the last generated token decoded on
+    its cache against a prefill of the whole sequence: a dict of
+    generate's prefill and decode seconds, the decode's logits, the
+    prefill's and its seconds, the whole sequence, and the last decode as
+    a function for the profiler."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    out, cache, prefill_s, decode_s = serve.generate(params, toks, cfg, tokens)
+    pos = toks.shape[1] + tokens - 1
+
+    def last_decode():
+        return T.lm_decode_step(params, out[:, -1], cache, pos, cfg)[0]
+
+    dec = last_decode()
+    seq = torch.cat([toks, out], dim=1)
+    t0 = time.perf_counter()
+    full, _ = T.lm_prefill(params, seq, cfg)
+    torch.cuda.synchronize()
+    return {"prefill_s": prefill_s, "decode_s": decode_s, "dec": dec, "full": full,
+            "full_s": time.perf_counter() - t0, "seq": seq, "last_decode": last_decode}
+
+
+def lm_profile(params, toks, cfg, last_decode) -> dict:
+    """Phase 6l (d): one decode step and one layer's prefill of ``toks``
+    under torch.profiler, and the SDPA yardstick."""
+    from repro_torch.models import transformer as T
+
+    one = {**params, "layers": {k: v[:1] for k, v in params["layers"].items()}}
+    return {"decode_step": profile_call(last_decode),
+            "prefill_one_layer": profile_call(lambda: T.lm_prefill(one, toks, cfg)),
+            "sdpa_yardstick": sdpa_yardstick(params, toks, cfg)}
+
+
+def lm_serve(smi: str, device="cuda") -> list:
+    """Phase 6l (b) and (d): ``launch.serve.generate`` at full width, each
+    run checked at its end. First, per model, the end check in float32 at
+    ``LM_CHECK`` (a prompt past the 2,048-token chunks and the 4,096
+    window): decode and prefill agree to float32 rounding; the bfloat16
+    prefill's distance from that float32 prefill is the model's bfloat16
+    noise. Each bfloat16 run's end error is then held to twice that noise
+    (the decode and the prefill may each sit that far from float32), and
+    at least to ``LM_PARITY``. qwen2-7b's 32k run also profiles one
+    prefill layer and its last decode step, and times the SDPA
+    yardstick."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    rows = []
+    for arch, layers, requests in LM_SERVE:
+        cfg = registry.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        resident = memory_mark()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = T.init_lm(cfg, gen, device).params
+        weights = lm_weight_bytes(params)
+        batch, prompt, tokens = LM_CHECK
+        toks = torch.randint(0, cfg.vocab, (batch, prompt), device=device, generator=gen)
+        f32 = dataclasses.replace(no_drop(cfg), dtype="float32")
+        ref = end_check(params, f32, toks, tokens)
+        err32 = float((ref["full"] - ref["dec"]).abs().max())
+        scale32 = float(ref["full"].abs().max())
+        check(err32 <= LM_F32_REL * max(1.0, scale32),
+              f"lm serve {arch}: float32 decode vs prefill max abs error {err32} "
+              f"(logits up to {scale32})")
+        noise = float((T.lm_prefill(params, ref["seq"], no_drop(cfg))[0] - ref["full"])
+                      .abs().max())
+        del ref
+        calib = {"arch": arch, "layers": cfg.n_layers, "check": LM_CHECK,
+                 "float32_end_max_abs_err": err32, "float32_logit_scale": scale32,
+                 "bfloat16_prefill_vs_float32_max_abs": noise}
+        print(json.dumps({"lm_serve_float32_check": calib, "card": smi}), flush=True)
+        for batch, prompt, tokens in requests:
+            toks = torch.randint(0, cfg.vocab, (batch, prompt), device=device, generator=gen)
+            memory_mark()
+            run = end_check(params, cfg, toks, tokens)
+            peak = torch.cuda.max_memory_allocated()
+            prof = (lm_profile(params, toks, cfg, run["last_decode"])
+                    if arch == "qwen2-7b" and prompt == max(r[1] for r in requests) else {})
+            # an MoE prefill of many tokens drops some from full experts: check without drops
+            checked = run if cfg.moe is None else end_check(params, no_drop(cfg), toks, tokens)
+            dec, full = checked["dec"], checked["full"]
+            err, scale = float((full - dec).abs().max()), float(full.abs().max())
+            tol = max(LM_PARITY * max(1.0, scale), 2 * noise)
+            check(bool(torch.isfinite(dec).all()) and err <= tol,
+                  f"lm serve {arch} {batch}x{prompt}: decode vs prefill max abs error {err} "
+                  f"over {tol} (logits up to {scale})")
+            t_att = T.cache_shape(cfg, batch, prompt + tokens)["k"].shape[2]
+            kv_bytes = 2 * cfg.n_layers * batch * t_att * cfg.n_kv_heads * cfg.hd * 2
+            row = {"arch": arch, "layers": cfg.n_layers, "batch": batch, "prompt": prompt,
+                   "tokens": tokens, "prefill_s": run["prefill_s"],
+                   "decode_ms_per_token": run["decode_s"] / (tokens - 1) * 1e3,
+                   "decode_bound_ms": (weights + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+                   "weights_read_bytes": weights, "kv_read_bytes": kv_bytes,
+                   "tokens_per_s": (tokens - 1) * batch / run["decode_s"],
+                   "max_memory_allocated": peak, "resident_before": resident,
+                   "end_check_prefill_s": checked["full_s"], "end_max_abs_err": err,
+                   "end_tolerance": tol, "end_logit_scale": scale}
+            if cfg.moe is not None:
+                row["decode_bound_ms_routed_experts"] = (
+                    lm_weight_bytes(params, cfg.moe.top_k * batch) + kv_bytes
+                ) / HBM_BYTES_PER_S * 1e3
+            print(json.dumps({"lm_serve_full_width": row, "card": smi}), flush=True)
+            if prof:
+                print(json.dumps({"lm_profile_qwen2_7b_32k": prof, "card": smi}), flush=True)
+            rows.append(row)
+            del run, checked, dec, full
+        del params, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_train_full(smi: str, device="cuda") -> list:
+    """Phase 6l (c): ``lm_train_step`` at full width with depth cut, on the
+    train_4k cell's sequence length."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import LMBatchSource
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import steps as S
+
+    seq = registry.get_shape("qwen2-7b", "train_4k").seq_len
+    rows = []
+    for arch, layers, batch in LM_TRAIN:
+        cfg = dataclasses.replace(registry.get_config(arch), n_layers=layers)
+        src = LMBatchSource(cfg.vocab, seq_len=seq, batch=batch, seed=0)
+        batches = [tuple(torch.as_tensor(a, device=device) for a in src.batch_at(i))
+                   for i in range(FULL_WARMUP + FULL_TIMED)]
+        resident = memory_mark()
+        params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(0), device).params
+
+        def step_fn(p, o, i):
+            return S.lm_train_step(p, o, *batches[i], cfg)
+
+        rows.append(time_training(f"{arch} ({layers} of {registry.get_config(arch).n_layers} "
+                                  f"layers, batch {batch})", f"train_4k (seq {seq})", params,
+                                  adamw_init(params), step_fn, smi, resident))
+        del params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_path(smi: str, device="cuda") -> dict:
+    """Phase 6l: (a)-(d); returns the kernel launches of the whole phase
+    (the LM path runs none of the four kernels)."""
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    reset_counts()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        smoke = lm_smoke(Path(tmp), device)
+    print(json.dumps({"lm_smoke": smoke, "card": smi}), flush=True)
+    lm_serve(smi, device)
+    lm_train_full(smi, device)
+    launches = all_launches()
+    check(not any(launches.values()), f"lm: kernel launches {launches}, expected none")
+    return launches
+
+
+def lm_child(out_path: str) -> None:
+    """Phase 6l's process: a fresh CUDA context and profiler, after the
+    earlier phases' sessions (after a coarsen sweep torch.profiler drops
+    device events) and memory. Writes the phase's launches to ``out_path``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    smi = smi_line()
+    t0 = time.perf_counter()
+    launches = lm_path(smi)
+    Path(out_path).write_text(json.dumps(launches))
+    print(f"  phase 6l took {time.perf_counter() - t0:.1f} s in its process", flush=True)
+
+
+LM_CHILD = "import sys, chip_smoke; chip_smoke.lm_child(sys.argv[1])"
+
+
+def run_lm_phase() -> dict:
+    """Phase 6l in its own process (``lm_child``); its launches."""
+    import os
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p))
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        out = Path(tmp) / "lm_launches.json"
+        proc = subprocess.run([sys.executable, "-c", LM_CHILD, str(out)], cwd=ROOT, env=env,
+                              timeout=LM_CHILD_TIMEOUT_S)
+        check(proc.returncode == 0 and out.exists(), f"phase 6l exited {proc.returncode}")
+        return json.loads(out.read_text())
+
+
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
     """Median end-to-end solve seconds of each spec (planning included),
     in turns after one warm-up each."""
@@ -3061,6 +3510,8 @@ def profile_solve(g, spec=None, top: int = 8) -> dict:
 
 
 def main():
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3070,10 +3521,7 @@ def main():
 
     phase("1 device")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     print(f"device: {name} | nvidia-smi: {smi}", flush=True)
 
     phase("2 build")
@@ -3241,6 +3689,15 @@ def main():
     t0 = time.perf_counter()
     train_launches = train_path(g_rmat, smi)
     print(f"  phase 6k took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("6l the LM family (in its own process)")
+    t0 = time.perf_counter()
+    del g_rmat, g_rmat19, g_grid, g_s16, dense_graphs, bucket_in, stream_update
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_launches = run_lm_phase()
+    check(not any(lm_launches.values()), f"lm: kernel launches {lm_launches}, expected none")
+    print(f"  phase 6l took {time.perf_counter() - t0:.1f} s", flush=True)
     mean_dense = {k: statistics.fmean(r[k] for r in dense_rows) for k in fields
                   if k != "library_ms"}
     mean_bucketed = {k: statistics.fmean(r[k] for r in bucket_rows) for k in fields}
@@ -3263,7 +3720,8 @@ def main():
             **{k: v["segment_min_flat"] for k, v in tune_launches.items()},
             **loadgen_launches,
             **dist_launches["segment_min_flat"],
-            "train": train_launches["segment_min_flat"]},
+            "train": train_launches["segment_min_flat"],
+            "lm": lm_launches["segment_min_flat"]},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
@@ -3289,7 +3747,8 @@ def main():
                              **{k: v["segment_min_sorted"] for k, v in tune_launches.items()
                                 if k.startswith("tune coarsen")},
                              **dist_launches["segment_min_sorted"],
-                             "train": train_launches["segment_min_sorted"]},
+                             "train": train_launches["segment_min_sorted"],
+                             "lm": lm_launches["segment_min_sorted"]},
         "matches_plain": True,
         "max_abs_err": max_err_sorted,
         "ms": mean_sorted["kernel_ms"],
@@ -3308,7 +3767,8 @@ def main():
         "replaces": "src/repro/kernels/multilinear_dense.py:68",
         "launches": entry_launches["multilinear_dense"],
         "launches_by_path": {"entry points": entry_launches["multilinear_dense"],
-                             "train": train_launches["multilinear_dense"]},
+                             "train": train_launches["multilinear_dense"],
+                             "lm": lm_launches["multilinear_dense"]},
         "matches_plain": True,
         "max_abs_err": max(max_err_dense, entry_err["multilinear_dense"]),
         "ms": mean_dense["kernel_ms"],
@@ -3328,7 +3788,8 @@ def main():
         "replaces": "src/repro/kernels/segment_min_bucketed.py:62",
         "launches": entry_launches["segment_min_bucketed"],
         "launches_by_path": {"entry points": entry_launches["segment_min_bucketed"],
-                             "train": train_launches["segment_min_bucketed"]},
+                             "train": train_launches["segment_min_bucketed"],
+                             "lm": lm_launches["segment_min_bucketed"]},
         "matches_plain": True,
         "max_abs_err": max(max_err_bucketed, entry_err["segment_min_bucketed"]),
         "ms": mean_bucketed["kernel_ms"],

@@ -1,10 +1,11 @@
 """End-to-end training driver with fault tolerance (counterpart of
-``repro.launch.train``) for the GNN and recsys archs. Runs on the card
-unless ``--device cpu`` asks for the CPU.
+``repro.launch.train``) for every arch. Runs on the card unless
+``--device cpu`` asks for the CPU.
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --steps 60
   PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch xdeepfm --steps 100 --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.train --arch nequip --steps 40 \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b --steps 40 \\
       --ckpt-dir ck --ckpt-every 5 --fault-at 25 --supervise  # crash + restart
 
 Fault tolerance: async checkpoints every ``--ckpt-every`` steps with atomic
@@ -13,8 +14,7 @@ checkpoint of either package resumes in the other); ``--supervise`` wraps
 the run loop in a supervisor that restarts from the latest complete
 checkpoint after an injected fault. The data pipeline is step-keyed, so
 the restarted run consumes exactly the batches the crashed run would have.
-A step-time watchdog flags straggler steps (> mean + 4σ). The LM archs
-raise ``NotImplementedError``: their models are not ported yet.
+A step-time watchdog flags straggler steps (> mean + 4σ).
 """
 from __future__ import annotations
 
@@ -24,10 +24,6 @@ import time
 import numpy as np
 import torch
 
-LM_NOT_PORTED = ("the LM family (models/layers.py, models/transformer.py and the LM "
-                 "train steps) is not ported yet: ROADMAP Queue 1 item 13b")
-
-
 class FaultInjected(RuntimeError):
     pass
 
@@ -36,12 +32,14 @@ def build_training(arch: str, mesh=None, seed: int = 0, full: bool = False, devi
     """Returns (params, opt_state, step_fn(params, opt, step_idx) -> (params,
     opt, metrics)) for the smoke config of ``arch`` (its published
     ``CONFIG`` with ``full=True``) on ``device``. ``params`` is a dict of the
-    model's parameters under the reference's names. ``mesh`` is taken for
-    the reference's signature: the GNN and recsys steps use none. With
+    model's parameters under the reference's names (nested for the LM).
+    ``mesh`` is taken for the reference's signature: the GNN and recsys
+    steps use none, the LM steps take ``None`` or a one-rank mesh. With
     ``full=True`` the GNN archs whose ``CONFIG.d_in`` is 0 (set per shape
     cell) raise ``ZeroDivisionError`` in their init, as the reference's do."""
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import (
+        LMBatchSource,
         MoleculeBatchSource,
         RecsysBatchSource,
         make_planted_graph_task,
@@ -49,12 +47,11 @@ def build_training(arch: str, mesh=None, seed: int = 0, full: bool = False, devi
     from repro_torch.graphs.structures import resolve_device
     from repro_torch.models import gnn as G
     from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.train import steps as S
 
     family = registry.family_of(arch)
-    if family == "lm":
-        raise NotImplementedError(f"{arch}: {LM_NOT_PORTED}")
     dev = resolve_device(device)
     cfg = registry.get_config(arch, smoke=not full)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -62,7 +59,14 @@ def build_training(arch: str, mesh=None, seed: int = 0, full: bool = False, devi
     def put(a):
         return torch.as_tensor(a, device=dev)
 
-    if family == "gnn":
+    if family == "lm":
+        src = LMBatchSource(cfg.vocab, seq_len=64, batch=8, seed=seed)
+        model = T.init_lm(cfg, gen, dev)
+
+        def step_fn(params, opt, i):
+            toks, labels = src.batch_at(i)
+            return S.lm_train_step(params, opt, put(toks), put(labels), cfg, mesh)
+    elif family == "gnn":
         if cfg.kind == "nequip":
             src = MoleculeBatchSource(n_atoms=12, n_edges=40, batch=16, seed=seed)
             model = G.init_nequip(cfg, gen, dev)
@@ -115,14 +119,13 @@ def _load_state(params, opt, state):
     """Copy a restored ``{"p": ..., "o": AdamWState}`` tree of numpy arrays
     into ``params`` and ``opt`` in place; returns the optimizer state with
     the restored step."""
-    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.adamw import AdamWState, tree_leaves
 
+    pairs = [(params, state["p"]), (opt.mu, state["o"].mu), (opt.nu, state["o"].nu)]
     with torch.no_grad():
-        for k, p in params.items():
-            p.copy_(torch.as_tensor(state["p"][k]))
-        for k in opt.mu:
-            opt.mu[k].copy_(torch.as_tensor(state["o"].mu[k]))
-            opt.nu[k].copy_(torch.as_tensor(state["o"].nu[k]))
+        for ours, theirs in pairs:
+            for t, a in zip(tree_leaves(ours), tree_leaves(theirs), strict=True):
+                t.copy_(torch.as_tensor(a))
     step = torch.as_tensor(state["o"].step, dtype=torch.int32).to(opt.step.device)
     return AdamWState(mu=opt.mu, nu=opt.nu, step=step)
 
@@ -189,14 +192,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if not args.supervise:
-        run(args)
-        return
+        return run(args)
 
     # supervisor: restart from latest checkpoint on failure (max 3 restarts)
     for attempt in range(4):
         try:
-            run(args)
-            return
+            return run(args)
         except FaultInjected as e:
             print(f"[supervisor] attempt {attempt}: {e}; restarting from latest checkpoint")
     raise RuntimeError("too many restarts")

@@ -1,9 +1,11 @@
 """AdamW with global-norm clipping and fp32 statistics (counterpart of
 ``repro.optim.adamw``).
 
-A parameter tree here is a flat dict of tensors keyed by the reference's
-parameter names; its leaves are taken in sorted key order, the order
-``jax.tree.leaves`` gives a dict. The update runs in place under
+A parameter tree here is a dict of tensors keyed by the reference's
+parameter names, flat (the GNN and recsys models) or nested (the LM's
+``layers``); its leaves are taken in sorted key order at every level, the
+order ``jax.tree.leaves`` gives a dict, and ``mu``/``nu`` nest as the
+parameters do. The update runs in place under
 ``torch.no_grad()``, a bounded chunk at a time, so a 1.2·10⁹-element
 embedding table needs no full-size temporaries. ``torch.optim.AdamW`` is
 not this update: it has no global-norm clip and applies the learning rate
@@ -12,7 +14,7 @@ and the decay in another order.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, NamedTuple
+from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
 
@@ -21,19 +23,40 @@ CHUNK = 1 << 26
 
 
 class AdamWState(NamedTuple):
-    mu: Dict[str, torch.Tensor]
-    nu: Dict[str, torch.Tensor]
+    mu: Any  # a tree of float32 tensors shaped as the parameters
+    nu: Any
     step: torch.Tensor  # int32 scalar, the checkpoint's ``['o'].step``
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a (nested) dict in sorted key order at every level."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def tree_map(fn: Callable, tree):
+    """``tree``'s structure with ``fn`` applied to every leaf."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_unflatten(tree, leaves: Iterator):
+    """``tree``'s structure with its leaves drawn in ``tree_leaves`` order
+    from ``leaves``."""
+    return {k: tree_unflatten(tree[k], leaves) if isinstance(tree[k], dict) else next(leaves)
+            for k in sorted(tree)}
+
+
 def adamw_init(params) -> AdamWState:
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for k, p in params.items()}
-    some = next(iter(params.values()))
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
     return AdamWState(
-        mu=zeros,
-        nu={k: torch.zeros_like(z) for k, z in zeros.items()},
-        step=torch.zeros((), dtype=torch.int32, device=some.device),
+        mu=tree_map(zeros, params),
+        nu=tree_map(zeros, params),
+        step=torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device),
     )
 
 
@@ -48,8 +71,8 @@ def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
     total = 0
-    for k in sorted(tree):
-        x = tree[k].float().contiguous()
+    for leaf in tree_leaves(tree):
+        x = leaf.float().contiguous()
         for c in _chunks(x):
             total = total + torch.sum(torch.square(c))
     return torch.sqrt(total)
@@ -76,9 +99,9 @@ def adamw_update(
     bc1 = 1 - torch.pow(b1, step.float())
     bc2 = 1 - torch.pow(b2, step.float())
 
-    for k in sorted(params):
-        p, g = params[k], grads[k].contiguous()
-        pieces = zip(_chunks(p), _chunks(g), _chunks(state.mu[k]), _chunks(state.nu[k]))
+    leaves = zip(*(tree_leaves(t) for t in (params, grads, state.mu, state.nu)), strict=True)
+    for p, g, mu, nu in leaves:
+        pieces = zip(_chunks(p), _chunks(g.contiguous()), _chunks(mu), _chunks(nu))
         for pc, gc, mc, nc in pieces:
             gs = gc.float() * scale
             mc.copy_(b1 * mc + (1 - b1) * gs)

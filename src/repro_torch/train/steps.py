@@ -1,12 +1,14 @@
-"""Train / serve steps of the GNN and recsys families (counterpart of the
-GNN and recsys half of ``repro.train.steps``; the LM steps are not ported
-yet).
+"""Train / serve steps of every architecture family (counterpart of
+``repro.train.steps``).
 
 A train step is forward, backward (``torch.autograd.grad`` over the
-parameter dict), the cosine learning rate and AdamW with optional int8
+parameter tree), the cosine learning rate and AdamW with optional int8
 gradient compression. ``params`` maps the reference's names to leaf
-tensors that require grad (a model's ``params``); it and the optimizer
-state are updated in place and returned. Nothing here syncs with the device: the metrics stay tensors.
+tensors that require grad (a model's ``params``: flat for the GNN and
+recsys models, nested for the LM); it and the optimizer state are updated
+in place and returned. The LM prefill and decode steps take the argmax
+token of the logits as int32. Nothing here syncs with the device: the
+metrics stay tensors.
 """
 from __future__ import annotations
 
@@ -15,10 +17,13 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import GNNConfig, RecsysConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
 from repro_torch.models import gnn as G
 from repro_torch.models import recsys as R
-from repro_torch.optim.adamw import adamw_update, cosine_lr
+from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import (
+    adamw_update, cosine_lr, tree_leaves, tree_map, tree_unflatten,
+)
 from repro_torch.optim.compress import compress_with_error_feedback
 
 LR = dict(peak=3e-4, warmup=100, total=10000)
@@ -32,13 +37,64 @@ def _apply_opt(params, opt_state, grads, step, *, compress=False, err_state=None
     return params, opt_state, gnorm, err_state
 
 
-def _grads(loss: torch.Tensor, params) -> Dict[str, torch.Tensor]:
-    """d loss / d params; a parameter the loss does not reach (GatedGCN's
-    last ``ln_e``) gets zeros, as under ``jax.grad``."""
-    names = list(params)
-    grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True,
+def _grads(loss: torch.Tensor, params) -> Dict[str, Any]:
+    """d loss / d params, a tree shaped as ``params``; a parameter the loss
+    does not reach (GatedGCN's last ``ln_e``) gets zeros, as under
+    ``jax.grad``."""
+    grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True,
                                 materialize_grads=True)
-    return dict(zip(names, grads))
+    return tree_unflatten(params, iter(grads))
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+def lm_loss_and_grad(params, tokens, labels, cfg: LMConfig, mesh=None, *,
+                     triangle_skip: bool | None = None):
+    """Loss and gradients, with ``cfg.grad_accum`` microbatches: each
+    microbatch's activations live only for its own forward and backward;
+    the gradients are summed in float32 and scaled by 1/k, the losses
+    averaged."""
+    tskip = cfg.triangle_skip if triangle_skip is None else triangle_skip
+
+    def loss_and_grad(t, l):
+        x = T.lm_forward(params, t, cfg, mesh, triangle_skip=tskip)
+        loss = T.softmax_xent(x, params["unembed"], l, cfg)
+        return loss.detach(), _grads(loss, params)
+
+    k = cfg.grad_accum
+    if k <= 1:
+        return loss_and_grad(tokens, labels)
+    b = tokens.shape[0]
+    if b % k:
+        raise ValueError(f"batch {b} does not split into {k} microbatches")
+    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                     params)
+    loss_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for t, l in zip(tokens.reshape(k, b // k, -1), labels.reshape(k, b // k, -1)):
+        loss, g = loss_and_grad(t, l)
+        for a, x in zip(tree_leaves(g_acc), tree_leaves(g)):
+            a.add_(x.float())
+        loss_acc = loss_acc + loss
+    inv = 1.0 / k
+    return loss_acc * inv, tree_map(lambda g: g * inv, g_acc)
+
+
+def lm_train_step(params, opt_state, tokens, labels, cfg: LMConfig, mesh=None):
+    loss, grads = lm_loss_and_grad(params, tokens, labels, cfg, mesh)
+    params, opt_state, gnorm, _ = _apply_opt(params, opt_state, grads, opt_state.step)
+    return params, opt_state, {"loss": loss, "gnorm": gnorm}
+
+
+def lm_prefill_step(params, tokens, cfg: LMConfig, mesh=None):
+    logits, cache = T.lm_prefill(params, tokens, cfg, mesh)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def lm_decode_step(params, token, cache, pos, cfg: LMConfig, mesh=None):
+    logits, cache = T.lm_decode_step(params, token, cache, pos, cfg, mesh)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
 # ---------------------------------------------------------------------------

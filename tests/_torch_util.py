@@ -4,9 +4,23 @@ Import only after ``pytest.importorskip("torch")``. Inputs are made with
 numpy and handed to both packages; results are compared as numpy.
 """
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.graphs.structures import from_reference
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Autouse in a test module that imports it: torch's CPU ops run on one
+    thread for the module's tests. The tests run in several worker
+    processes at once, and the LM's many small ops on eight threads each
+    wait on threads descheduled by the other workers (a 90 ms train step
+    took seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_np(x) -> np.ndarray:

@@ -1,8 +1,9 @@
 """Tests of the port that need the card (marker ``gpu``): the CUDA kernels
 against their plain versions, and the flat, coarsen and stream paths,
 connectivity and SSSP on the card against the CPU, the tuner and the load
-harness on the card, a 1×1 NCCL dist plan, and a train step of every GNN
-and recsys arch and the recsys serve and retrieval steps against the CPU.
+harness on the card, a 1×1 NCCL dist plan, a train step of every GNN
+and recsys arch and the recsys serve and retrieval steps against the CPU,
+and an LM train step and prefill/decode of every LM arch against the CPU.
 Elsewhere they skip. Run
 them on an H100 with
 
@@ -527,11 +528,13 @@ def _same_start(card, arch):
     copied from the CPU's."""
     from repro_torch.launch import train
 
+    from repro_torch.optim.adamw import tree_leaves
+
     cpu = train.build_training(arch, device="cpu")
     on_card = train.build_training(arch, device=card)
     with torch.no_grad():
-        for k, p in on_card[0].items():
-            p.copy_(cpu[0][k])
+        for p, w in zip(tree_leaves(on_card[0]), tree_leaves(cpu[0]), strict=True):
+            p.copy_(w)
     return cpu, on_card
 
 
@@ -569,3 +572,53 @@ def test_recsys_serve_and_retrieval_on_card_match_cpu(card):
         got = call(dev.params, torch.as_tensor(ids, device=card), cfg)
         assert got.is_cuda
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+LM_ARCHS = ["qwen2-7b", "mixtral-8x7b", "qwen3-32b", "command-r-35b", "kimi-k2-1t-a32b"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_card_matches_cpu(card, arch):
+    """One LM train step (bfloat16 compute) from the same weights: the loss
+    within rel 1e-4 of the CPU's, and ``mu`` (a tenth of the gradient)
+    within 2^-5 of its largest entry per parameter (bfloat16 tensors round
+    apart between the card's and the CPU's matmuls), all on the card."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    (cpu_p, cpu_o, cpu_step), (p, o, step) = _same_start(card, arch)
+    _, cpu_o, cpu_m = cpu_step(cpu_p, cpu_o, 0)
+    p, o, m = step(p, o, 0)
+    assert all(t.is_cuda for t in [*tree_leaves(p), *tree_leaves(o.mu), o.step])
+    assert abs(float(m["loss"]) - float(cpu_m["loss"])) <= 1e-4 * abs(float(cpu_m["loss"]))
+    for got, want in zip(tree_leaves(o.mu), tree_leaves(cpu_o.mu), strict=True):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 2.0 ** -5 * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_and_decode_on_card(card, arch):
+    """The card's prefill logits and cache against the CPU's from the same
+    weights (within 2^-5 of the largest entry, bfloat16), and on the card a
+    decode on the S−1 prefix's cache against the full prefill (3e-2, as
+    tests/test_models_lm.py)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import from_reference, to_reference
+    from repro_torch.models import transformer as T
+
+    cfg = registry.get_config(arch, smoke=True)
+    cpu = T.init_lm(cfg, device="cpu")
+    params = from_reference(T.init_lm(cfg, device=card), to_reference(cpu)).params
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)),
+                           dtype=torch.int32)
+    want, want_cache = T.lm_prefill(cpu.params, toks, cfg)
+    full, cache = T.lm_prefill(params, toks.to(card), cfg)
+    assert full.is_cuda and cache["k"].is_cuda
+    for got, w in ((full, want), (cache["k"], want_cache["k"]), (cache["v"], want_cache["v"])):
+        assert float((got.cpu().float() - w.float()).abs().max()) <= 2.0 ** -5 * float(
+            w.float().abs().max())
+    _, cache = T.lm_prefill(params, toks[:, :-1].to(card), cfg)
+    t = min(cfg.sliding_window or 32, 32)
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, t - v.shape[2]))
+             for k, v in cache.items()}
+    dec, _ = T.lm_decode_step(params, toks[:, -1].to(card), cache, 31, cfg)
+    assert float((full - dec).abs().max()) < 3e-2

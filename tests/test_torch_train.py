@@ -1,7 +1,9 @@
 """The port's trainer (``repro_torch.launch.train``) against the
-reference's ``repro.launch.train``: runs from one shared initial state,
-fault injection and resume, checkpoints crossing packages both ways, the
-CLI, and what the port does not build.
+reference's ``repro.launch.train`` for the GNN and recsys archs: runs from
+one shared initial state, fault injection and resume, checkpoints crossing
+packages both ways, the CLI, and the full configs neither package builds
+(the LM archs' runs are in ``test_torch_launch_lm.py`` and
+``test_torch_resume_lm.py``).
 
 Tolerances: per-step losses of two runs from the same state within rel
 1e-4 over 30 steps (float32 on both sides, sums in other orders; AdamW's
@@ -27,13 +29,11 @@ from _torch_util import assert_rel_close  # noqa: E402
 import repro.launch.train as ref_train  # noqa: E402
 import repro_torch.launch.train as train  # noqa: E402
 from repro.checkpoint import save_checkpoint as ref_save  # noqa: E402
-from repro.configs import registry as ref_registry  # noqa: E402
 from repro_torch.checkpoint import (  # noqa: E402
     latest_step, restore_checkpoint, save_checkpoint, wait_for_saves,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
-LM_ARCHS = [a for a in ref_registry.arch_ids() if ref_registry.family_of(a) == "lm"]
 
 
 def _args(**kw):
@@ -155,14 +155,6 @@ def test_entry_points_want_the_card_unless_told():
         train.build_training("gat-cora")
     proc = _cli("--arch", "gat-cora", "--steps", "1")
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr
-
-
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_lm_archs_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="13b"):
-        train.build_training(arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="13b"):
-        train.run(_args(arch=arch))
 
 
 @pytest.mark.parametrize("arch", ["gat-cora", "meshgraphnet", "gatedgcn"])
