@@ -184,6 +184,25 @@ Phases:
      loss (finite). (d) torch.profiler over one qwen2-7b decode step on
      the 32k cache and one layer's 32k prefill: top device operations and
      the busy share. None of the four kernels launched;
+  6m. the mesh-sharded LM (last, after 6l, in a fresh process): each run
+     first on one rank (the whole model on the card), then on four gloo
+     ranks sharing the card, with the same weights (init_lm, seed 0):
+     (a) qwen2-7b whole (28 layers) on a 1x4 mesh, 7 query heads and 1 KV
+     head a rank: a float32 default request (4 x 32, 16 tokens), its
+     prefill logits within 1e-3 of the largest of one rank's and its
+     greedy tokens equal; the float32 end check at LM_CHECK, both logits
+     within 1e-3 of one rank's and decode within 1e-3 of prefill; the
+     bfloat16 default request timed (prefill s, decode ms/token beside the
+     rank's weights-read bound), its tokens' agreement with one rank's
+     recorded; torch.profiler over one decode step on rank 0 (the gloo
+     collectives' share); (b) mixtral-8x7b at 2 of 32 layers on 2x2 (4
+     experts a rank) under a capacity that drops no token: a float32
+     prompt of 2 x 8,192 (past the 4,096 window) and 16 tokens, logits
+     and tokens compared, then bfloat16, timed; (c) qwen2-7b at 2 layers
+     on 2x2: one float32 lm_train_step at 2 x 4,096 from the same state,
+     loss and gnorm within rel 1e-4 of one rank's, then a second step,
+     timed; each rank's peak per run, logits equal on every rank, and
+     none of the four kernels launched;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -202,11 +221,14 @@ checkout of the repository, it exits non-zero and prints no result.
 
 On a host with four cards, `python3 -c "import chip_smoke;
 chip_smoke.dist_cards()"` runs phase 6j's 2x2 grid with one NCCL rank
-per card against the 1x1 solve.
+per card against the 1x1 solve, and `python3 -c "import chip_smoke;
+chip_smoke.lm_dist_cards()"` the sharded LM with one NCCL rank per card
+(models one card cannot hold: see lm_dist_cards).
 """
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -316,6 +338,31 @@ LM_SERVE = (("qwen2-7b", None, ((4, 32, 16), (1, 32_768, 64))),
 # 122 GB.
 LM_TRAIN = (("qwen2-7b", 2, 2), ("mixtral-8x7b", 1, 1))
 LM_CHILD_TIMEOUT_S = 600
+# Phase 6m: four gloo ranks on the one card against one rank, the same
+# weights. (a) qwen2-7b whole on 1x4 (7 query heads and 1 KV head a rank)
+# with launch.serve's default request (batch, prompt, tokens) and the
+# float32 end check at LM_CHECK; (b) (arch, layers, request): mixtral at 2
+# of 32 layers on 2x2 (4 experts a rank) past its 4,096 window; (c) (arch,
+# layers, (batch, seq)): one float32 lm_train_step on 2x2, its loss and
+# gnorm within LM_MESH_STEP_REL of one rank's, at the train_4k cell's
+# 4,096 tokens (batch cut from 256).
+LM_MESH_WORLD = 4
+LM_MESH_REQUEST = (4, 32, 16)
+LM_MESH_MOE = ("mixtral-8x7b", 2, (2, 8_192, 16))
+LM_MESH_TRAIN = ("qwen2-7b", 2, (2, 4_096))
+LM_MESH_STEP_REL = 1e-4
+LM_MESH_TIMEOUT_S = 900
+LM_MESH_CHILD_TIMEOUT_S = 1200
+# lm_dist_cards (four cards, one NCCL rank each): (arch, layers or None
+# for all, mesh, requests (batch, prompt, tokens)) in order of priority,
+# then (arch, (batch, seq), steps) trained at 1x4.
+LM_CARDS_SERVE = (
+    ("mixtral-8x7b", None, (1, 4), ((4, 32, 16), (1, 8_192, 16))),
+    ("qwen3-32b", None, (1, 4), ((4, 32, 16),)),
+    ("command-r-35b", None, (1, 4), ((4, 32, 16),)),
+    ("kimi-k2-1t-a32b", 1, (2, 2), ((2, 4_096, 16),)),
+)
+LM_CARDS_TRAIN = ("qwen2-7b", (2, 4_096), 3)
 KERNEL_NAMES = ("segment_min_flat", "segment_min_sorted", "multilinear_dense",
                 "segment_min_bucketed")
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
@@ -2301,14 +2348,15 @@ mesh = make_mesh(DIST_GRID, ("data", "model"))
 out = {"rank": rank, "device": str(mesh.device), "backend": mesh.backend}
 # CUDA tensors, every dtype and op the port's collectives use.
 axes = ("data", "model")
-for dt in (torch.int32, torch.int64, torch.float32, torch.float64):
+for dt in (torch.int32, torch.int64, torch.float32, torch.float64, torch.bfloat16):
     x = torch.full((3,), rank + 1, dtype=dt, device=mesh.device)
     for op, want in (("min", 1), ("max", world), ("sum", world * (world + 1) // 2)):
         if mesh.all_reduce(x, op, axes).tolist() != [want] * 3:
             raise RuntimeError(f"all_reduce {op} of {dt} on {mesh.device} is wrong")
     if mesh.all_gather(x, axes).tolist() != [r + 1 for r in range(world) for _ in range(3)]:
         raise RuntimeError(f"all_gather of {dt} on {mesh.device} is wrong")
-out["collectives"] = "all_gather, all_reduce min/max/sum of int32/int64/float32/float64"
+out["collectives"] = ("all_gather, all_reduce min/max/sum of "
+                      "int32/int64/float32/float64/bfloat16")
 # pack=True: the plan's probe, like the reference's, counts the R*C*Emax
 # slots of a 2x2 partition of R-MAT s20 as pack32 positions (more than
 # 2^24), though only its eids (< 2^24) enter the keys; 1x1 resolves pack32.
@@ -2740,6 +2788,16 @@ def memory_mark() -> int:
     return torch.cuda.memory_allocated()
 
 
+def free_card() -> None:
+    """Drop unreachable tensors and hand the allocator's cache back."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def time_training(label: str, shape: str, params, opt, step_fn, smi: str, resident: int) -> dict:
     """Median step ms over ``FULL_TIMED`` steps after ``FULL_WARMUP``, the
     allocator's peak since ``resident`` was marked (before the model was
@@ -3096,9 +3154,10 @@ def sdpa_yardstick(params, toks, cfg) -> dict:
 
     with torch.no_grad():
         lp = {k: v[0] for k, v in params["layers"].items()}
-        x = T._embed(params["embed"], toks, T.dtype_of(cfg.dtype))
+        sh = T._shard_of(cfg, None)
+        x = T._embed(params["embed"], toks, T.dtype_of(cfg.dtype), sh, cfg.vocab)
         q, k, v = T._qkv(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg,
-                         torch.arange(toks.shape[1], device=toks.device))
+                         torch.arange(toks.shape[1], device=toks.device), sh)
         del x
 
         def port():
@@ -3137,27 +3196,27 @@ def no_drop(cfg):
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
 
 
-def end_check(params, cfg, toks, tokens):
+def end_check(params, cfg, toks, tokens, mesh=None):
     """``launch.serve.generate``, then the last generated token decoded on
     its cache against a prefill of the whole sequence: a dict of
     generate's prefill and decode seconds, the decode's logits, the
     prefill's and its seconds, the whole sequence, and the last decode as
-    a function for the profiler."""
+    a function for the profiler (on ``mesh``: every rank alike)."""
     import torch
 
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
-    out, cache, prefill_s, decode_s = serve.generate(params, toks, cfg, tokens)
+    out, cache, prefill_s, decode_s = serve.generate(params, toks, cfg, tokens, mesh)
     pos = toks.shape[1] + tokens - 1
 
     def last_decode():
-        return T.lm_decode_step(params, out[:, -1], cache, pos, cfg)[0]
+        return T.lm_decode_step(params, out[:, -1], cache, pos, cfg, mesh)[0]
 
     dec = last_decode()
     seq = torch.cat([toks, out], dim=1)
     t0 = time.perf_counter()
-    full, _ = T.lm_prefill(params, seq, cfg)
+    full, _ = T.lm_prefill(params, seq, cfg, mesh)
     torch.cuda.synchronize()
     return {"prefill_s": prefill_s, "decode_s": decode_s, "dec": dec, "full": full,
             "full_s": time.perf_counter() - t0, "seq": seq, "last_decode": last_decode}
@@ -3186,7 +3245,6 @@ def lm_serve(smi: str, device="cuda") -> list:
     prefill layer and its last decode step, and times the SDPA
     yardstick."""
     import dataclasses
-    import gc
 
     import torch
 
@@ -3254,8 +3312,7 @@ def lm_serve(smi: str, device="cuda") -> list:
             rows.append(row)
             del run, checked, dec, full
         del params, toks
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_card()
     return rows
 
 
@@ -3263,7 +3320,6 @@ def lm_train_full(smi: str, device="cuda") -> list:
     """Phase 6l (c): ``lm_train_step`` at full width with depth cut, on the
     train_4k cell's sequence length."""
     import dataclasses
-    import gc
 
     import torch
 
@@ -3290,8 +3346,7 @@ def lm_train_full(smi: str, device="cuda") -> list:
                                   f"layers, batch {batch})", f"train_4k (seq {seq})", params,
                                   adamw_init(params), step_fn, smi, resident))
         del params, batches
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_card()
     return rows
 
 
@@ -3334,6 +3389,357 @@ LM_CHILD = "import sys, chip_smoke; chip_smoke.lm_child(sys.argv[1])"
 
 def run_lm_phase() -> dict:
     """Phase 6l in its own process (``lm_child``); its launches."""
+    return run_child(LM_CHILD, "6l", LM_CHILD_TIMEOUT_S)
+
+
+
+# ---------------------------------------------------------------------------
+# phase 6m: the mesh-sharded LM (four gloo ranks on the one card, in fresh
+# processes); lm_dist_cards: one NCCL rank per card on a four-card host
+# ---------------------------------------------------------------------------
+
+LM_MESH_RANK = r"""
+import os, sys
+from datetime import timedelta
+from pathlib import Path
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.environ["ROOT"])
+import chip_smoke as C
+from repro_torch.launch.mesh import make_mesh
+
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dist.init_process_group(os.environ["BACKEND"], store=dist.FileStore(os.environ["STORE"], world),
+                        rank=rank, world_size=world, timeout=timedelta(seconds=600))
+device = os.environ.get("DEVICE") or None
+meshes = {shape: make_mesh(shape, ("data", "model"), device=device)
+          for shape in ((1, 4), (2, 2))}
+C.reset_counts()
+out = getattr(C, os.environ["WORK"])(meshes, device=meshes[(1, 4)].device)
+out.update(rank=rank, device=str(meshes[(1, 4)].device), backend=meshes[(1, 4)].backend,
+           launches=C.all_launches())
+torch.save(out, Path(os.environ["OUT_DIR"]) / f"rank{rank}.pt")
+dist.barrier()
+os._exit(0)  # leave without tearing the process groups down under the other ranks
+"""
+
+
+def mesh_ranks(work: str, workdir: Path, backend: str = "gloo", device=None) -> list:
+    """Run ``chip_smoke.<work>(meshes, device=...)`` on four ranks over
+    ``backend`` (rank r on ``cuda:{r % device_count}``: gloo shares one
+    card, NCCL needs a card per rank; ``device="cpu"`` rehearses), each
+    with a 1x4 and a 2x2 mesh; every rank's result. Fails if a rank fails
+    or outlives ``LM_MESH_TIMEOUT_S``; kills every rank either way."""
+    import os
+
+    import torch
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), ROOT=str(ROOT), GLOO_SOCKET_IFNAME="lo",
+               OMP_NUM_THREADS="2", WORLD_SIZE=str(LM_MESH_WORLD),
+               STORE=str(workdir / "store"), OUT_DIR=str(workdir), BACKEND=backend, WORK=work,
+               DEVICE=device or "")
+    procs = []
+    try:
+        for r in range(LM_MESH_WORLD):
+            log = open(workdir / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", LM_MESH_RANK], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT, env=dict(env, RANK=str(r))), log))
+        deadline = time.monotonic() + LM_MESH_TIMEOUT_S
+        while time.monotonic() < deadline:  # until all succeed or one fails
+            codes = [p.poll() for p, _ in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    print((workdir / "rank0.log").read_text()[-20000:], flush=True)
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            print((workdir / f"rank{r}.log").read_text()[-4000:], file=sys.stderr)
+        fail(f"lm mesh ({work}): ranks {bad} failed or outlived {LM_MESH_TIMEOUT_S} s")
+    return [torch.load(workdir / f"rank{r}.pt") for r in range(LM_MESH_WORLD)]
+
+
+def collective_share(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, the host time of
+    the collectives it made (the backend's ``gloo:``/``nccl:`` ops; gloo's
+    include the copies of CUDA tensors through host memory), their share of
+    the wall time, and the top host ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    coll = [e for e in rows if e.key.startswith(("gloo:", "nccl:"))]
+    coll_ms = sum(e.cpu_time_total for e in coll) / 1e3
+    by_op = {}  # an op may have a host row and a device row
+    for e in coll:
+        row = by_op.setdefault(e.key, {"calls": 0, "host_ms": 0.0})
+        row["calls"] = max(row["calls"], e.count)
+        row["host_ms"] += e.cpu_time_total / 1e3
+    top = sorted(rows, key=lambda e: e.cpu_time_total, reverse=True)[:12]
+    return {"wall_ms": wall, "collectives_host_ms": coll_ms, "collectives_share": coll_ms / wall,
+            "collectives": by_op,
+            "top_host_ops": [{"op": e.key[:60], "calls": e.count,
+                              "host_ms": e.cpu_time_total / 1e3} for e in top]}
+
+
+def lm_mesh_work(meshes, device="cuda") -> dict:
+    """Phase 6m's runs, on one rank (``meshes`` None: the whole model on the
+    card, no mesh) or on a rank of the four (``meshes`` by shape), with the
+    same weights (``init_lm`` from seed 0) and tokens: (a) qwen2-7b whole
+    on 1x4: a float32 default request (logits and greedy tokens compared),
+    the float32 end check at ``LM_CHECK``, and a timed bfloat16 default
+    request; (b) mixtral-8x7b at 2 of 32 layers on 2x2 under ``no_drop``:
+    a float32 prompt of 2 x 8,192 past the window, then decodes (compared),
+    and the same in bfloat16, timed; (c) qwen2-7b at 2 layers on 2x2: one
+    float32 ``lm_train_step`` from the same state (loss and gnorm compared),
+    then a second, timed. Results as CPU tensors and numbers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import LMBatchSource
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import steps as S
+
+    def mesh_of(shape):
+        return None if meshes is None else meshes[shape]
+
+    def toks_of(cfg, shape, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return torch.randint(0, cfg.vocab, shape, device=device, generator=gen)
+
+    def weights(cfg, mesh):
+        gen = torch.Generator(device=device).manual_seed(0)
+        return T.init_lm(cfg, gen, device, mesh=mesh).params
+
+    out = {}
+    t_part = time.perf_counter()
+    # (a) qwen2-7b whole, 1x4
+    mesh = mesh_of((1, 4))
+    cfg = registry.get_config("qwen2-7b")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    resident = memory_mark()
+    params = weights(cfg, mesh)
+    b, p, n = LM_MESH_REQUEST
+    toks = toks_of(cfg, (b, p), 1)
+    first, _ = T.lm_prefill(params, toks, f32, mesh)
+    gen32, _, _, _ = serve.generate(params, toks, f32, n, mesh)
+    ends = end_check(params, f32, toks_of(cfg, LM_CHECK[:2], 2), LM_CHECK[2], mesh)
+    serve.generate(params, toks, cfg, 2, mesh)  # warm the bfloat16 path
+    memory_mark()
+    gen16, _, prefill_s, decode_s = serve.generate(params, toks, cfg, n, mesh)
+    last = serve.generate(params, toks, cfg, 2, mesh)
+    prof = collective_share(lambda: T.lm_decode_step(
+        params, last[0][:, -1], last[1], p + 1, cfg, mesh))
+    out["a"] = {"first_logits": first.cpu(), "tokens_f32": gen32.cpu(),
+                "check_dec": ends["dec"].cpu(), "check_full": ends["full"].cpu(),
+                "check_tokens": ends["seq"].cpu(), "tokens_bf16": gen16.cpu(),
+                "prefill_s": prefill_s, "decode_ms_per_token": decode_s / (n - 1) * 1e3,
+                "weights_read_bytes": lm_weight_bytes(params),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "resident_before": resident, "decode_profile": prof,
+                "seconds": time.perf_counter() - t_part}
+    del params, first, ends, last
+    free_card()
+    t_part = time.perf_counter()
+    # (b) mixtral-8x7b, 2 of 32 layers, 2x2, no drops
+    mesh = mesh_of((2, 2))
+    arch, layers, (b, p, n) = LM_MESH_MOE
+    cfg = no_drop(dataclasses.replace(registry.get_config(arch), n_layers=layers))
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params = weights(cfg, mesh)
+    toks = toks_of(cfg, (b, p), 3)
+    logits32, _ = T.lm_prefill(params, toks, f32, mesh)
+    gen32, _, _, _ = serve.generate(params, toks, f32, n, mesh)
+    memory_mark()
+    gen16, _, prefill_s, decode_s = serve.generate(params, toks, cfg, n, mesh)
+    out["b"] = {"prefill_logits": logits32.cpu(), "tokens_f32": gen32.cpu(),
+                "tokens_bf16": gen16.cpu(), "prefill_s": prefill_s,
+                "decode_ms_per_token": decode_s / (n - 1) * 1e3,
+                "weights_read_bytes": lm_weight_bytes(params),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "seconds": time.perf_counter() - t_part}
+    del params, logits32
+    free_card()
+    t_part = time.perf_counter()
+    # (c) qwen2-7b, 2 layers, 2x2: float32 train steps
+    mesh = mesh_of((2, 2))
+    arch, layers, (b, seq) = LM_MESH_TRAIN
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=layers, dtype="float32")
+    src = LMBatchSource(cfg.vocab, seq_len=seq, batch=b, seed=0)
+    batch = [torch.as_tensor(a, device=device) for a in src.batch_at(0)]
+    resident = memory_mark()
+    params = weights(cfg, mesh)
+    opt = adamw_init(params)
+    step_ms, metrics = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = S.lm_train_step(params, opt, *batch, cfg, mesh)
+        metrics.append({k: float(v) for k, v in m.items()})
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["c"] = {"metrics": metrics, "step_ms": step_ms,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "resident_before": resident, "seconds": time.perf_counter() - t_part}
+    if mesh is not None:
+        out["c"]["save"] = sharded_save(params["layers"], T.lm_param_specs(cfg, mesh)["layers"],
+                                        mesh)
+    del params, opt, batch
+    free_card()
+    return out
+
+
+def sharded_save(tree, specs, mesh) -> dict:
+    """``save_checkpoint`` of this rank's blocks of ``tree`` (stacked
+    ``[L, ...]`` layer weights) on ``mesh``, synchronously, into a scratch
+    directory: its seconds, the device memory it added at its peak, the
+    whole tree's bytes and the bound on that peak (an all-gather's parts,
+    its result and a contiguous copy of it, four pieces of at most
+    ``SAVE_PIECE_BYTES`` or one layer of one weight, whole)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import live_axes
+
+    whole = {k: v.numel() * v.element_size() * math.prod(
+        mesh.axis_size(live_axes(mesh, e)) for e in specs[k] if live_axes(mesh, e))
+        for k, v in tree.items()}
+    layer = max(b // tree[k].shape[0] for k, b in whole.items())
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    before = memory_mark()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        ckpt.save_checkpoint(d, 0, tree, async_save=False, mesh=mesh, specs=specs)
+    return {"seconds": time.perf_counter() - t0,
+            "extra_peak": torch.cuda.max_memory_allocated() - before,
+            "whole_bytes": sum(whole.values()),
+            "bound": 4 * max(ckpt.SAVE_PIECE_BYTES, layer)}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def lm_mesh_path(smi: str, workdir: Path, device="cuda") -> dict:
+    """Phase 6m: :func:`lm_mesh_work` on one rank in this process, then on
+    four gloo ranks on the one card, each checked against the one-rank
+    run; returns the whole phase's kernel launches (the ranks' summed)."""
+    import torch
+
+    reset_counts()
+    t0 = time.perf_counter()
+    one = lm_mesh_work(None, device)
+    one_s = time.perf_counter() - t0
+    free_card()
+    t0 = time.perf_counter()
+    ranks = mesh_ranks("lm_mesh_work", workdir, device="cpu" if device == "cpu" else None)
+    ranks_s = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" and r["device"] == ("cpu" if device == "cpu" else "cuda:0")
+              for r in ranks),
+          f"lm mesh: ranks not gloo on cuda:0: {[(r['backend'], r['device']) for r in ranks]}")
+    rows = {"one_rank_s": one_s, "four_ranks_s": ranks_s}
+    for r in ranks:
+        a, b, c = r["a"], r["b"], r["c"]
+        errs = {"a_first_logits": rel_err(a["first_logits"], one["a"]["first_logits"]),
+                "a_check_dec": rel_err(a["check_dec"], one["a"]["check_dec"]),
+                "a_check_full": rel_err(a["check_full"], one["a"]["check_full"]),
+                "a_end_dec_vs_full": rel_err(a["check_dec"], a["check_full"]),
+                "b_prefill_logits": rel_err(b["prefill_logits"], one["b"]["prefill_logits"])}
+        for k, e in errs.items():
+            check(e <= LM_F32_REL, f"lm mesh rank {r['rank']}: {k} off by {e} of the largest "
+                                   f"logit (over {LM_F32_REL})")
+        for part, key in (("a", "tokens_f32"), ("a", "check_tokens"), ("b", "tokens_f32")):
+            check(torch.equal(r[part][key], one[part][key]),
+                  f"lm mesh rank {r['rank']}: greedy {part} {key} differ from one rank's")
+        for k in ("first_logits", "check_dec"):
+            check(torch.equal(a[k], ranks[0]["a"][k]), f"lm mesh: {k} differ between ranks")
+        for k in ("loss", "gnorm"):
+            got, want = c["metrics"][0][k], one["c"]["metrics"][0][k]
+            check(abs(got - want) <= LM_MESH_STEP_REL * abs(want),
+                  f"lm mesh rank {r['rank']}: train step {k} {got}, one rank {want}")
+        save = c["save"]
+        check(save["extra_peak"] <= min(save["bound"], save["whole_bytes"]),
+              f"lm mesh rank {r['rank']}: a sharded save added {save['extra_peak']} bytes at "
+              f"its peak (bound {save['bound']}, the whole layers {save['whole_bytes']})")
+        rows[f"rank{r['rank']}"] = {
+            "rel_errs": errs, "train_step": c["metrics"][0],
+            "bf16_tokens_equal_to_one_rank": {
+                "a": float((a["tokens_bf16"] == one["a"]["tokens_bf16"]).float().mean()),
+                "b": float((b["tokens_bf16"] == one["b"]["tokens_bf16"]).float().mean())},
+            "peaks": {"a": a["max_memory_allocated"], "b": b["max_memory_allocated"],
+                      "c": c["max_memory_allocated"]},
+            "sharded_save": c["save"]}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in KERNEL_NAMES}
+    launches = {k: launches[k] + v for k, v in all_launches().items()}
+    check(not any(launches.values()), f"lm mesh: kernel launches {launches}, expected none")
+
+    def timing(res, part):
+        t = dict(res[part])
+        keep = ("prefill_s", "decode_ms_per_token", "weights_read_bytes", "max_memory_allocated",
+                "step_ms", "decode_profile", "seconds")
+        out = {k: t[k] for k in keep if k in t}
+        if "weights_read_bytes" in t:
+            out["decode_bound_ms"] = t["weights_read_bytes"] / HBM_BYTES_PER_S * 1e3
+        return out
+
+    r0 = ranks[0]
+    rows.update({
+        "a_qwen2_7b_whole": {"one_rank": timing(one, "a"), "1x4_rank0": timing(r0, "a")},
+        "b_mixtral_8x7b_2_layers": {"one_rank": timing(one, "b"), "2x2_rank0": timing(r0, "b")},
+        "c_qwen2_7b_2_layers_train": {"one_rank": timing(one, "c"), "2x2_rank0": timing(r0, "c"),
+                                      "one_rank_metrics": one["c"]["metrics"]},
+        "launches": launches})
+    print(json.dumps({"lm_mesh": rows, "card": smi}), flush=True)
+    return launches
+
+
+def lm_mesh_child(out_path: str) -> None:
+    """Phase 6m's process: a fresh CUDA context and profiler, and the card's
+    memory free for the one-rank run and then the four ranks. Writes the
+    phase's launches to ``out_path``."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    smi = smi_line()
+    t0 = time.perf_counter()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        launches = lm_mesh_path(smi, Path(tmp) / "ranks")
+    Path(out_path).write_text(json.dumps(launches))
+    print(f"  phase 6m took {time.perf_counter() - t0:.1f} s in its process", flush=True)
+
+
+def run_child(code: str, name: str, timeout: int) -> dict:
+    """``code`` (which writes JSON to the path it is given) in a fresh
+    interpreter; what it wrote."""
     import os
     import tempfile
 
@@ -3342,12 +3748,203 @@ def run_lm_phase() -> dict:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p))
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
-        out = Path(tmp) / "lm_launches.json"
-        proc = subprocess.run([sys.executable, "-c", LM_CHILD, str(out)], cwd=ROOT, env=env,
-                              timeout=LM_CHILD_TIMEOUT_S)
-        check(proc.returncode == 0 and out.exists(), f"phase 6l exited {proc.returncode}")
+        out = Path(tmp) / "launches.json"
+        proc = subprocess.run([sys.executable, "-c", code, str(out)], cwd=ROOT, env=env,
+                              timeout=timeout)
+        check(proc.returncode == 0 and out.exists(), f"phase {name} exited {proc.returncode}")
         return json.loads(out.read_text())
 
+
+LM_MESH_CHILD = "import sys, chip_smoke; chip_smoke.lm_mesh_child(sys.argv[1])"
+
+
+def kv_read_bytes(cfg, batch: int, t_att: int, mesh) -> int:
+    """Bytes of bfloat16 cache one decode step attends on this rank."""
+    from repro_torch.models import transformer as T
+
+    sh = T._shard_of(cfg, mesh)
+    b = batch // sh.dpn if sh.dpn > 1 and batch % sh.dpn == 0 else batch
+    return 2 * cfg.n_layers * b * t_att * sh.kv_used * cfg.hd * 2
+
+
+def lm_cards_serve(smi: str, arch: str, layers, requests, mesh, failures: list) -> list:
+    """``launch.serve.generate`` of ``arch`` (``layers`` of it, or all) on
+    ``mesh``, every rank alike: per request (batch, prompt, tokens), the
+    float32 end check under ``no_drop`` (the last decode within
+    ``LM_F32_REL`` of the largest logit of a prefill of the whole
+    sequence), then the bfloat16 run at the configured capacity, timed
+    (prefill s, decode ms/token beside the bound over this rank's blocks
+    of the weights and cache), its logits finite. Rank 0 prints each row;
+    a failed check is appended to ``failures`` and the runs go on (every
+    rank fails alike: the checks read logits equal on every rank)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    cfg = registry.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    f32 = dataclasses.replace(no_drop(cfg), dtype="float32")
+    resident = memory_mark()
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, gen, mesh=mesh).params
+    init_s = time.perf_counter() - t0
+    weights = lm_weight_bytes(params)
+    rows = []
+    for batch, prompt, tokens in requests:
+        toks = torch.randint(0, cfg.vocab, (batch, prompt), device=mesh.device, generator=gen)
+        ref = end_check(params, f32, toks, tokens, mesh)
+        err32, scale32 = float((ref["full"] - ref["dec"]).abs().max()), float(ref["full"].abs().max())
+        if err32 > LM_F32_REL * max(1.0, scale32):
+            failures.append(f"lm cards {arch} {batch}x{prompt}: float32 decode vs prefill "
+                            f"max abs error {err32} (logits up to {scale32})")
+        del ref
+        memory_mark()
+        run = end_check(params, cfg, toks, tokens, mesh)
+        if not bool(torch.isfinite(run["dec"]).all() and torch.isfinite(run["full"]).all()):
+            failures.append(f"lm cards {arch} {batch}x{prompt}: bfloat16 logits not finite")
+        t_att = T.cache_shape(cfg, batch, prompt + tokens)["k"].shape[2]
+        kv_bytes = kv_read_bytes(cfg, batch, t_att, mesh)
+        row = {"arch": arch, "layers": cfg.n_layers, "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+               "batch": batch, "prompt": prompt, "tokens": tokens, "init_s": init_s,
+               "float32_end_max_abs_err": err32, "float32_logit_scale": scale32,
+               "prefill_s": run["prefill_s"],
+               "decode_ms_per_token": run["decode_s"] / (tokens - 1) * 1e3,
+               "decode_bound_ms": (weights + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+               "weights_read_bytes": weights, "kv_read_bytes": kv_bytes,
+               "tokens_per_s": (tokens - 1) * batch / run["decode_s"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "resident_before": resident}
+        if mesh.rank == 0:
+            print(json.dumps({"lm_cards_serve": row, "card": smi}), flush=True)
+        rows.append(row)
+        del run
+    del params
+    free_card()
+    return rows
+
+
+def lm_cards_work(meshes, device=None) -> dict:
+    """``lm_dist_cards``'s runs on one NCCL rank of four (one card each)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import LMBatchSource
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import steps as S
+
+    smi = smi_line()
+    m14, m22 = meshes[(1, 4)], meshes[(2, 2)]
+    say = print if m14.rank == 0 else (lambda *a, **k: None)
+    for dt in (torch.float32, torch.bfloat16):  # the FSDP gradient's reduce-scatter
+        x = torch.arange(24, dtype=dt, device=m22.device).reshape(8, 3) * (m22.rank + 1)
+        i = m22.axis_index("data")
+        want = m22.all_reduce(x, "sum", "data").narrow(0, 4 * i, 4)
+        check(torch.equal(m22.reduce_scatter(x, "data", 0), want),
+              f"lm cards: {m22.backend} reduce_scatter of {dt} differs from all_reduce")
+    out, failures = {}, []
+    for arch, layers, shape, requests in LM_CARDS_SERVE:
+        t0 = time.perf_counter()
+        out[arch] = lm_cards_serve(smi, arch, layers, requests, meshes[shape], failures)
+        say(f"  {arch} on {shape} took {time.perf_counter() - t0:.1f} s", flush=True)
+    # qwen2-7b whole, trained at 1x4 on one batch from a state past warm-up
+    arch, (b, seq), steps = LM_CARDS_TRAIN
+    cfg = registry.get_config(arch)
+    src = LMBatchSource(cfg.vocab, seq_len=seq, batch=b, seed=0)
+    batch = [torch.as_tensor(a, device=m14.device) for a in src.batch_at(0)]
+    resident = memory_mark()
+    params = T.init_lm(cfg, torch.Generator(device=m14.device).manual_seed(0),
+                       mesh=m14).params
+    opt = adamw_init(params)
+    opt = opt._replace(step=torch.full_like(opt.step, S.LR["warmup"]))
+    losses, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = S.lm_train_step(params, opt, *batch, cfg, m14)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(losses[-1] < losses[0], f"lm cards train {arch}: losses {losses} did not fall")
+    out["train"] = {"arch": arch, "batch": b, "seq": seq, "losses": losses, "step_ms": step_ms,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "resident_before": resident}
+    say(json.dumps({"lm_cards_train_1x4": out["train"], "card": smi}), flush=True)
+    del params, opt, batch
+    free_card()
+    # qwen2-7b decode ms/token at 1x1 (rank 0 alone), 1x4 and 2x2
+    cfg = registry.get_config("qwen2-7b")
+    b, p, n = LM_MESH_REQUEST
+    decode = {}
+    for label, mesh in (("1x1", None), ("1x4", m14), ("2x2", m22)):
+        if mesh is None and m14.rank != 0:
+            m14.barrier()
+            continue
+        dev = m14.device
+        params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                           mesh=mesh).params
+        toks = torch.randint(0, cfg.vocab, (b, p), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(1))
+        serve.generate(params, toks, cfg, 2, mesh)
+        _, _, prefill_s, decode_s = serve.generate(params, toks, cfg, n, mesh)
+        decode[label] = {"prefill_s": prefill_s, "decode_ms_per_token": decode_s / (n - 1) * 1e3,
+                         "decode_bound_ms": lm_weight_bytes(params) / HBM_BYTES_PER_S * 1e3}
+        del params
+        free_card()
+        if mesh is None:
+            m14.barrier()
+    out["decode"] = decode
+    say(json.dumps({"lm_cards_qwen2_7b_decode": decode, "card": smi}), flush=True)
+    check(not failures, "; ".join(failures))
+    return out
+
+
+def lm_dist_cards():
+    """The sharded LM with one NCCL rank per card, on a host with four cards:
+
+        python3 -c "import chip_smoke; chip_smoke.lm_dist_cards()"
+
+    In order (``lm_cards_serve``: each request's decode checked against a
+    prefill of the whole sequence in float32 under ``no_drop``, then run
+    in bfloat16, timed): mixtral-8x7b whole at 1x4, serve's default
+    request and an 8,192-token prompt; qwen3-32b and command-r-35b whole
+    at 1x4, the default request; kimi-k2 at its published widths, 1 of 61
+    layers, at 2x2 with FSDP over ``data`` and experts over ``model``, 2 x
+    4,096 tokens;
+    qwen2-7b whole trained at 1x4 for 3 steps on one batch of 2 x 4,096
+    from a state past warm-up (the loss falls); qwen2-7b's decode ms/token
+    at 1x1, 1x4 and 2x2. Rank 0 prints every row with the cards' names and
+    power limits."""
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        fail(f"lm_dist_cards needs four cards, found {torch.cuda.device_count()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    print(f"cards: {smi}", flush=True)
+    from repro_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = mesh_ranks("lm_cards_work", build.BUILD_DIR / "lm_cards", backend="nccl")
+    check(sorted(r["device"] for r in ranks) == [f"cuda:{i}" for i in range(4)],
+          f"lm_dist_cards: ranks not one per card: {[r['device'] for r in ranks]}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in KERNEL_NAMES}
+    check(not any(launches.values()), f"lm_dist_cards: kernel launches {launches}")
+    print(json.dumps({"lm_dist_cards": {
+        "seconds": time.perf_counter() - t0, "launches": launches,
+        "peaks_by_rank": [{k: [row["max_memory_allocated"] for row in v]
+                           for k, v in r.items() if isinstance(v, list)} for r in ranks]},
+        "cards": smi}), flush=True)
 
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
     """Median end-to-end solve seconds of each spec (planning included),
@@ -3698,6 +4295,13 @@ def main():
     lm_launches = run_lm_phase()
     check(not any(lm_launches.values()), f"lm: kernel launches {lm_launches}, expected none")
     print(f"  phase 6l took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("6m the mesh-sharded LM: four gloo ranks on the one card (in its own process)")
+    t0 = time.perf_counter()
+    lm_mesh_launches = run_child(LM_MESH_CHILD, "6m", LM_MESH_CHILD_TIMEOUT_S)
+    check(not any(lm_mesh_launches.values()),
+          f"lm mesh: kernel launches {lm_mesh_launches}, expected none")
+    print(f"  phase 6m took {time.perf_counter() - t0:.1f} s", flush=True)
     mean_dense = {k: statistics.fmean(r[k] for r in dense_rows) for k in fields
                   if k != "library_ms"}
     mean_bucketed = {k: statistics.fmean(r[k] for r in bucket_rows) for k in fields}
@@ -3721,7 +4325,8 @@ def main():
             **loadgen_launches,
             **dist_launches["segment_min_flat"],
             "train": train_launches["segment_min_flat"],
-            "lm": lm_launches["segment_min_flat"]},
+            "lm": lm_launches["segment_min_flat"],
+            "lm_sharded": lm_mesh_launches["segment_min_flat"]},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
@@ -3748,7 +4353,8 @@ def main():
                                 if k.startswith("tune coarsen")},
                              **dist_launches["segment_min_sorted"],
                              "train": train_launches["segment_min_sorted"],
-                             "lm": lm_launches["segment_min_sorted"]},
+                             "lm": lm_launches["segment_min_sorted"],
+                             "lm_sharded": lm_mesh_launches["segment_min_sorted"]},
         "matches_plain": True,
         "max_abs_err": max_err_sorted,
         "ms": mean_sorted["kernel_ms"],
@@ -3768,7 +4374,8 @@ def main():
         "launches": entry_launches["multilinear_dense"],
         "launches_by_path": {"entry points": entry_launches["multilinear_dense"],
                              "train": train_launches["multilinear_dense"],
-                             "lm": lm_launches["multilinear_dense"]},
+                             "lm": lm_launches["multilinear_dense"],
+                             "lm_sharded": lm_mesh_launches["multilinear_dense"]},
         "matches_plain": True,
         "max_abs_err": max(max_err_dense, entry_err["multilinear_dense"]),
         "ms": mean_dense["kernel_ms"],
@@ -3789,7 +4396,8 @@ def main():
         "launches": entry_launches["segment_min_bucketed"],
         "launches_by_path": {"entry points": entry_launches["segment_min_bucketed"],
                              "train": train_launches["segment_min_bucketed"],
-                             "lm": lm_launches["segment_min_bucketed"]},
+                             "lm": lm_launches["segment_min_bucketed"],
+                             "lm_sharded": lm_mesh_launches["segment_min_bucketed"]},
         "matches_plain": True,
         "max_abs_err": max(max_err_bucketed, entry_err["segment_min_bucketed"]),
         "ms": mean_bucketed["kernel_ms"],

@@ -17,12 +17,25 @@ A tree is nested dicts, lists, tuples and named tuples; as in JAX, an
 ``defaultdict`` too) its sorted keys, and restore rebuilds each dict as
 the target's own type (a ``defaultdict`` with its ``default_factory``); ``None`` and empty containers hold no leaves; anything
 else is a leaf (a torch tensor, a numpy array or a scalar), saved from
-the host and restored as numpy. There is no mesh here, so restore takes
-no shardings.
+the host and restored as numpy.
+
+A run on a mesh saves and restores the reference's whole arrays: with
+``mesh`` and ``specs`` (a tree shaped as the saved one whose leaves are
+:class:`repro_torch.launch.mesh.P`, or ``None`` for a replicated leaf)
+every rank takes part in gathering each split leaf and rank 0 alone
+copies it to the host and writes; a restore gives each rank its blocks.
+So a checkpoint crosses packages and mesh shapes both ways. Restore takes
+no device shardings. A split leaf is gathered a piece at a time along a
+dimension no mesh axis splits, each piece at most ``SAVE_PIECE_BYTES``
+whole (or one index of that dimension, if that is larger), and the piece
+is on the host before the next is gathered: beyond the blocks a save
+holds under three whole pieces on the device (the gather's parts, their
+concatenation and a contiguous copy), never a whole tree or leaf.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
@@ -32,7 +45,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import P, gather_leaf, live_axes, shard_leaf
+
 _PENDING: list[threading.Thread] = []
+SAVE_PIECE_BYTES = 256 << 20
 
 
 def _dict_keys(node: dict) -> list:
@@ -43,7 +59,10 @@ def _dict_keys(node: dict) -> list:
 
 def _children(node):
     """``[(path entry, child)]`` of a container node, or ``None`` for a leaf.
-    The entries print as JAX's key types do: ``['k']``, ``[i]``, ``.name``."""
+    The entries print as JAX's key types do: ``['k']``, ``[i]``, ``.name``.
+    A :class:`P` is a leaf (of a tree of specs)."""
+    if isinstance(node, P):
+        return None
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in _dict_keys(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -87,10 +106,57 @@ def _host_copy(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, async_save: bool = True):
+def _specs_by_name(tree, specs) -> dict:
+    if specs is None:
+        return {}
+    names = [name for name, _ in _leaves(tree)]
+    spec_leaves = [s for _, s in _leaves(specs)]
+    if len(spec_leaves) != len(names):
+        raise ValueError(f"specs hold {len(spec_leaves)} leaves, the tree {len(names)}")
+    return dict(zip(names, spec_leaves))
+
+
+def _whole_on_host(x: torch.Tensor, spec, mesh) -> Optional[np.ndarray]:
+    """The whole array of which ``x`` is this rank's block under ``spec``,
+    on the host of rank 0 (``None`` on the others); collective. Gathered in
+    pieces along the first dimension no axis splits (see the module
+    docstring), each copied to the host before the next is gathered."""
+    ranks = [mesh.axis_size(live_axes(mesh, e)) if live_axes(mesh, e) else 1
+             for e in (spec or ())]
+    ranks += [1] * (x.dim() - len(ranks))
+    if all(n == 1 for n in ranks):
+        return _host_copy(x) if mesh.rank == 0 else None
+    free = [d for d, n in enumerate(ranks) if n == 1]
+    pieces, dim = [x], 0
+    if free:  # whole bytes of one index along ``dim``
+        dim = free[0]
+        one = x.numel() // max(x.shape[dim], 1) * x.element_size() * math.prod(ranks)
+        pieces = x.split(max(1, SAVE_PIECE_BYTES // max(one, 1)), dim)
+    host = []
+    for piece in pieces:
+        whole = gather_leaf(piece, spec, mesh)
+        if mesh.rank == 0:
+            host.append(_host_copy(whole))
+        del whole
+    return np.concatenate(host, axis=dim) if mesh.rank == 0 else None
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, async_save: bool = True,
+                    mesh=None, specs=None):
+    """Save ``tree`` as step ``step``; on a mesh (collective) the whole
+    arrays, gathered under ``specs`` a leaf and a piece at a time, copied
+    to the host and written by rank 0."""
+    if mesh is None:
+        arrays = {name: _host_copy(leaf) for name, leaf in _leaves(tree)}
+    else:
+        by_name = _specs_by_name(tree, specs)
+        arrays = {name: _whole_on_host(leaf, by_name.get(name), mesh)
+                  if isinstance(leaf, torch.Tensor) else _host_copy(leaf)
+                  for name, leaf in _leaves(tree)}
+        if mesh.rank != 0:
+            return
     os.makedirs(ckpt_dir, exist_ok=True)
-    # Pull to host synchronously (cheap vs serialization), serialize async.
-    arrays = {name: _host_copy(leaf) for name, leaf in _leaves(tree)}
+    # Pulled to host synchronously (cheap vs serialization); serialize async.
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp = final + ".tmp"
 
@@ -129,10 +195,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, target: Any):
+def restore_checkpoint(ckpt_dir: str, step: int, target: Any, *, mesh=None, specs=None):
     """``target`` supplies the tree structure (values ignored); every leaf
-    comes back as a numpy array with its stored dtype."""
+    comes back as a numpy array with its stored dtype (on a mesh, this
+    rank's block of it under ``specs``)."""
+    by_name = _specs_by_name(target, specs)
     path = os.path.join(ckpt_dir, f"step_{step:09d}", "arrays.npz")
     with np.load(path) as data:
-        leaves = [data[name] for name, _ in _leaves(target)]
+        leaves = [shard_leaf(data[name], by_name.get(name), mesh) for name, _ in _leaves(target)]
     return _rebuild(target, iter(leaves))

@@ -1,6 +1,6 @@
 """Config dataclasses for every architecture family + shape cells
-(a copy of the reference's ``configs/base.py``; the LM configs are data
-here: no LM model is built by the port yet).
+(a copy of the reference's ``configs/base.py``; ``models.transformer``
+builds the LM configs, on one device or sharded over a mesh).
 
 Every assigned architecture gets a module ``repro_torch.configs.<id>``
 exporting ``CONFIG`` (the exact published configuration) and ``SMOKE`` (a

@@ -26,6 +26,15 @@ raises without CUDA; pass ``device="cpu"`` to run on the CPU.
 
 The mesh hashes by identity: it keys the plan cache, so plans built on
 one mesh share engines and plans on another do not.
+
+:class:`P` is the reference's ``PartitionSpec``: the mesh axes that split
+each dimension of an array. :func:`copy_to`, :func:`reduce_from` and
+:func:`gather` are the differentiable collectives of the sharded LM
+(Megatron's conjugate pairs): each one's backward is the collective that
+makes the gradient of a replicated tensor whole on every rank.
+``torch.distributed.nn.functional.all_reduce`` is not :func:`reduce_from`:
+its backward all-reduces again, which multiplies a gradient that is
+already replicated by the number of ranks.
 """
 from __future__ import annotations
 
@@ -39,6 +48,33 @@ import torch.distributed as dist
 from repro_torch.graphs.structures import resolve_device
 
 _OPS = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
+
+
+def _spec_entry(e):
+    """One dimension of a :class:`P`, normalised as JAX does: a 1-tuple of
+    names becomes the name, an empty tuple ``None``."""
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        return None if not e else e[0] if len(e) == 1 else e
+    return e
+
+
+class P(tuple):
+    """``PartitionSpec``: per dimension ``None`` (not split), a mesh axis
+    name, or a tuple of names (split over their row-major product)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_spec_entry(e) for e in entries))
+
+    def __repr__(self):
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+    def axes(self) -> tuple:
+        """Every axis name the spec splits over, in order of appearance."""
+        out = []
+        for e in self:
+            out.extend(() if e is None else (e,) if isinstance(e, str) else e)
+        return tuple(out)
 
 
 class Mesh:
@@ -139,6 +175,136 @@ class Mesh:
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=_OPS[op], group=self.group(axes))
         return out
+
+    def all_reduce_(self, x: torch.Tensor, op: str, axes) -> torch.Tensor:
+        """``x`` (contiguous) reduced in place; returns ``x``."""
+        dist.all_reduce(x, op=_OPS[op], group=self.group(axes))
+        return x
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh."""
+        dist.barrier(group=dist.group.WORLD)
+
+    def gather_dim(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """``x`` of every rank along ``axes`` concatenated along ``dim``."""
+        if dim == 0:
+            return self.all_gather(x, axes)
+        return self.all_gather(x.movedim(dim, 0), axes).movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """The sum of ``x`` over the ranks along ``axes``, cut into equal
+        parts along ``dim``: this rank's part."""
+        n, i = self.axis_size(axes), self.axis_index(axes)
+        if self.backend == "nccl":
+            xs = x.movedim(dim, 0).contiguous()
+            out = xs.new_empty((xs.shape[0] // n,) + tuple(xs.shape[1:]))
+            dist.reduce_scatter_tensor(out, xs, group=self.group(axes))
+            return out.movedim(0, dim).contiguous()
+        part = x.shape[dim] // n
+        return self.all_reduce(x, "sum", axes).narrow(dim, i * part, part).contiguous()
+
+
+def live_axes(mesh, axes) -> tuple:
+    """The names among ``axes`` (a name, a tuple or ``None``) that ``mesh``
+    has with more than one rank, in mesh order: the axes a collective over
+    ``axes`` must run on. ``mesh`` may be ``None`` (one device)."""
+    if mesh is None or axes is None:
+        return ()
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    return tuple(a for a in mesh.axis_names if a in names and sizes[a] > 1)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, "sum", ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x, "sum", axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.gather_dim(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim), None, None, None
+
+
+def shard_leaf(x, spec, mesh):
+    """This rank's block of the whole array ``x`` (a tensor or a numpy
+    array) under ``spec``: each split dimension cut into equal parts, the
+    part of the rank's row-major index along the dimension's axes. A
+    tensor comes back as a contiguous copy, so the whole one can be freed."""
+    if spec is None or mesh is None:
+        return x
+    sel, cut = [], False
+    for dim, entry in enumerate(spec):
+        axes = live_axes(mesh, entry)
+        if not axes:
+            sel.append(slice(None))
+            continue
+        n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {x.shape[dim]} does not split over "
+                             f"{axes} ({n} ranks)")
+        part = x.shape[dim] // n
+        sel.append(slice(i * part, (i + 1) * part))
+        cut = True
+    if not cut:
+        return x
+    block = x[tuple(sel)]
+    return block.contiguous().clone() if isinstance(x, torch.Tensor) else np.ascontiguousarray(block)
+
+
+def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole array of which ``x`` is this rank's block under ``spec``
+    (collective: every rank of the split axes calls it)."""
+    if spec is None or mesh is None:
+        return x
+    for dim, entry in enumerate(spec):
+        axes = live_axes(mesh, entry)
+        if axes:
+            x = mesh.gather_dim(x, axes, dim)
+    return x
+
+
+def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Enter a region split over ``axes``: the identity forward; backward,
+    the rank's partial gradients summed over ``axes``. A no-op where no
+    axis of ``axes`` has more than one rank."""
+    axes = live_axes(mesh, axes)
+    return _CopyTo.apply(x, mesh, axes) if axes else x
+
+
+def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Leave a region split over ``axes``: the ranks' partial results
+    summed (all-reduce); backward, the identity."""
+    axes = live_axes(mesh, axes)
+    return _ReduceFrom.apply(x, mesh, axes) if axes else x
+
+
+def gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The shards of ``x`` along ``axes`` concatenated along ``dim`` (an
+    FSDP weight gather); backward, the reduce-scatter of the gradient."""
+    axes = live_axes(mesh, axes)
+    return _Gather.apply(x, mesh, axes, dim) if axes else x
 
 
 def make_mesh(shape, axis_names, *, device=None) -> Mesh:

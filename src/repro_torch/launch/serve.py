@@ -1,6 +1,7 @@
 """Batched LM serving demo (counterpart of ``repro.launch.serve``): prefill
 a prompt batch, decode greedily. Runs on the card unless ``--device cpu``
-asks for the CPU.
+asks for the CPU; the CLI runs one process, ``generate`` also a sharded
+model on a mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --device cpu
@@ -24,7 +25,10 @@ def generate(params, toks: torch.Tensor, cfg, n_tokens: int, mesh=None):
     hold every generated token (at most the window, whose cache the prefill
     has already rolled). Returns (tokens [B, n_tokens] int32, the cache,
     which holds every position but the last token's, and the prefill's and
-    the decode loop's seconds, each ended by a device sync)."""
+    the decode loop's seconds, each ended by a device sync). On a mesh of
+    several ranks every rank calls it with its blocks of the weights and
+    the global prompt: the tokens come back whole on every rank, the cache
+    as this rank's blocks (``models.transformer.cache_specs``)."""
     from repro_torch.train import steps as S
 
     dev = toks.device

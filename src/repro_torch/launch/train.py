@@ -15,6 +15,11 @@ the run loop in a supervisor that restarts from the latest complete
 checkpoint after an injected fault. The data pipeline is step-keyed, so
 the restarted run consumes exactly the batches the crashed run would have.
 A step-time watchdog flags straggler steps (> mean + 4σ).
+
+In process, ``build_training`` and ``run`` also take a mesh of several
+ranks for the LM archs (every rank calls them alike): the model is
+sharded over it (``models.transformer``) and its checkpoints hold the
+reference's whole arrays, written by rank 0. The CLI runs one process.
 """
 from __future__ import annotations
 
@@ -33,8 +38,9 @@ def build_training(arch: str, mesh=None, seed: int = 0, full: bool = False, devi
     opt, metrics)) for the smoke config of ``arch`` (its published
     ``CONFIG`` with ``full=True``) on ``device``. ``params`` is a dict of the
     model's parameters under the reference's names (nested for the LM).
-    ``mesh`` is taken for the reference's signature: the GNN and recsys
-    steps use none, the LM steps take ``None`` or a one-rank mesh. With
+    The LM steps run on ``mesh`` (``None``: one device), each rank on its
+    blocks of the model, on the mesh's device unless ``device`` names
+    another; the GNN and recsys steps use no mesh, as the reference's. With
     ``full=True`` the GNN archs whose ``CONFIG.d_in`` is 0 (set per shape
     cell) raise ``ZeroDivisionError`` in their init, as the reference's do."""
     from repro_torch.configs import registry
@@ -52,7 +58,8 @@ def build_training(arch: str, mesh=None, seed: int = 0, full: bool = False, devi
     from repro_torch.train import steps as S
 
     family = registry.family_of(arch)
-    dev = resolve_device(device)
+    lm_mesh = mesh if family == "lm" else None
+    dev = resolve_device(device if device is not None or lm_mesh is None else lm_mesh.device)
     cfg = registry.get_config(arch, smoke=not full)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -61,11 +68,11 @@ def build_training(arch: str, mesh=None, seed: int = 0, full: bool = False, devi
 
     if family == "lm":
         src = LMBatchSource(cfg.vocab, seq_len=64, batch=8, seed=seed)
-        model = T.init_lm(cfg, gen, dev)
+        model = T.init_lm(cfg, gen, dev, mesh=lm_mesh)
 
         def step_fn(params, opt, i):
             toks, labels = src.batch_at(i)
-            return S.lm_train_step(params, opt, put(toks), put(labels), cfg, mesh)
+            return S.lm_train_step(params, opt, put(toks), put(labels), cfg, lm_mesh)
     elif family == "gnn":
         if cfg.kind == "nequip":
             src = MoleculeBatchSource(n_atoms=12, n_edges=40, batch=16, seed=seed)
@@ -130,25 +137,46 @@ def _load_state(params, opt, state):
     return AdamWState(mu=opt.mu, nu=opt.nu, step=step)
 
 
-def run(args) -> dict:
+def state_specs(arch: str, mesh, full: bool = False):
+    """The :class:`P` tree of a run's ``{"p": params, "o": AdamWState}`` on
+    ``mesh`` (``None`` off a mesh and for the archs that use none)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWState
+
+    if mesh is None or registry.family_of(arch) != "lm":
+        return None
+    p = T.lm_param_specs(registry.get_config(arch, smoke=not full), mesh)
+    return {"p": p, "o": AdamWState(mu=p, nu=p, step=P())}
+
+
+def run(args, mesh=None) -> dict:
     """One training run. ``args.fault_at`` raises ``FaultInjected`` at that
     step once per ``args`` object (it records ``args.faulted``), so a
-    supervisor that calls ``run(args)`` again resumes past it."""
+    supervisor that calls ``run(args)`` again resumes past it. With a
+    mesh every rank calls it; rank 0 prints and writes the checkpoints."""
     from repro_torch.checkpoint import (
         latest_step, restore_checkpoint, save_checkpoint, wait_for_saves,
     )
 
-    params, opt, step_fn = build_training(args.arch, seed=args.seed,
+    params, opt, step_fn = build_training(args.arch, mesh, seed=args.seed,
                                           device=getattr(args, "device", None))
+    specs = state_specs(args.arch, mesh)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
     start = 0
     if args.ckpt_dir:
+        if mesh is not None:  # every rank sees rank 0's last save complete
+            wait_for_saves()
+            mesh.barrier()
         last = latest_step(args.ckpt_dir)
         if last is not None:
-            state = restore_checkpoint(args.ckpt_dir, last, {"p": params, "o": opt})
+            state = restore_checkpoint(args.ckpt_dir, last, {"p": params, "o": opt},
+                                       mesh=mesh, specs=specs)
             opt = _load_state(params, opt, state)
             start = last
-            print(f"[restore] resumed from checkpoint step {last}")
+            say(f"[restore] resumed from checkpoint step {last}")
 
     losses = []
     times = []
@@ -166,15 +194,16 @@ def run(args) -> dict:
         if len(times) > 10:
             w = np.array(times[-50:-1])
             if dt > w.mean() + 4 * w.std() + 1e-3:
-                print(f"[watchdog] step {i} took {dt:.3f}s (window mean {w.mean():.3f}s) — straggler flagged")
+                say(f"[watchdog] step {i} took {dt:.3f}s (window mean {w.mean():.3f}s) — straggler flagged")
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
-            save_checkpoint(args.ckpt_dir, i + 1, {"p": params, "o": opt})
+            save_checkpoint(args.ckpt_dir, i + 1, {"p": params, "o": opt}, mesh=mesh,
+                            specs=specs)
         if i % max(1, args.steps // 10) == 0:
-            print(f"step {i:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+            say(f"step {i:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
     wait_for_saves()
     first = float(np.mean(losses[:5])) if len(losses) >= 5 else losses[0]
     last_l = float(np.mean(losses[-5:]))
-    print(f"[done] loss {first:.4f} -> {last_l:.4f} over {len(losses)} executed steps")
+    say(f"[done] loss {first:.4f} -> {last_l:.4f} over {len(losses)} executed steps")
     return dict(first_loss=first, last_loss=last_l, steps=len(losses))
 
 

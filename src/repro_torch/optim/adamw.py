@@ -10,6 +10,12 @@ parameters do. The update runs in place under
 embedding table needs no full-size temporaries. ``torch.optim.AdamW`` is
 not this update: it has no global-norm clip and applies the learning rate
 and the decay in another order.
+
+On a mesh a tree holds this rank's blocks of every leaf, and ``specs``
+(a tree of :class:`repro_torch.launch.mesh.P`) names the axes each leaf is
+split over: the global norm sums the squares of each split leaf over its
+axes and counts each replicated leaf once, so the clip is the one the
+whole tree would get.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import math
 from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
+
+from repro_torch.launch.mesh import live_axes
 
 # Elements per elementwise pass: bounds each temporary at 256 MiB of float32.
 CHUNK = 1 << 26
@@ -69,12 +77,19 @@ def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
 
 
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    total = 0
-    for leaf in tree_leaves(tree):
+def global_norm(tree, *, mesh=None, specs=None) -> torch.Tensor:
+    """The 2-norm of every element of ``tree``; on a mesh, of the whole
+    tree of which ``tree`` holds this rank's blocks under ``specs``."""
+    spec_leaves = tree_leaves(specs) if specs is not None else [None] * len(tree_leaves(tree))
+    by_axes: dict = {}  # split axes -> sum of squares of the leaves split over them
+    for leaf, spec in zip(tree_leaves(tree), spec_leaves, strict=True):
+        axes = live_axes(mesh, spec.axes()) if spec is not None else ()
         x = leaf.float().contiguous()
         for c in _chunks(x):
-            total = total + torch.sum(torch.square(c))
+            by_axes[axes] = by_axes.get(axes, 0) + torch.sum(torch.square(c))
+    total = 0
+    for axes, sq in by_axes.items():
+        total = total + (mesh.all_reduce(sq, "sum", axes) if axes else sq)
     return torch.sqrt(total)
 
 
@@ -90,10 +105,13 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    mesh=None,
+    specs=None,
 ):
     """One step: ``params`` and ``state.mu``/``state.nu`` change in place and
-    are returned with the new step and the gradients' global norm."""
-    gnorm = global_norm(grads)
+    are returned with the new step and the gradients' global norm (on a
+    mesh, of the whole gradient tree: ``specs`` as in :func:`global_norm`)."""
+    gnorm = global_norm(grads, mesh=mesh, specs=specs)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     bc1 = 1 - torch.pow(b1, step.float())

@@ -9,6 +9,12 @@ recsys models, nested for the LM); it and the optimizer state are updated
 in place and returned. The LM prefill and decode steps take the argmax
 token of the logits as int32. Nothing here syncs with the device: the
 metrics stay tensors.
+
+On a mesh the LM steps run SPMD: every rank passes the global batch and
+its blocks of the parameters and optimizer state (``T.lm_param_specs``);
+the gradients come back as this rank's blocks of the whole gradient of
+the global mean loss, and the optimizer's global norm counts every
+element once.
 """
 from __future__ import annotations
 
@@ -29,11 +35,13 @@ from repro_torch.optim.compress import compress_with_error_feedback
 LR = dict(peak=3e-4, warmup=100, total=10000)
 
 
-def _apply_opt(params, opt_state, grads, step, *, compress=False, err_state=None):
+def _apply_opt(params, opt_state, grads, step, *, compress=False, err_state=None,
+               mesh=None, specs=None):
     lr = cosine_lr(step, **LR)
     if compress:
         grads, err_state = compress_with_error_feedback(grads, err_state)
-    params, opt_state, gnorm = adamw_update(grads, opt_state, params, lr)
+    params, opt_state, gnorm = adamw_update(grads, opt_state, params, lr, mesh=mesh,
+                                            specs=specs)
     return params, opt_state, gnorm, err_state
 
 
@@ -55,17 +63,19 @@ def lm_loss_and_grad(params, tokens, labels, cfg: LMConfig, mesh=None, *,
     """Loss and gradients, with ``cfg.grad_accum`` microbatches: each
     microbatch's activations live only for its own forward and backward;
     the gradients are summed in float32 and scaled by 1/k, the losses
-    averaged."""
+    averaged. On a mesh each gradient is then summed over the axes of
+    ``T.grad_sum_axes`` (once, after the microbatches)."""
     tskip = cfg.triangle_skip if triangle_skip is None else triangle_skip
 
     def loss_and_grad(t, l):
         x = T.lm_forward(params, t, cfg, mesh, triangle_skip=tskip)
-        loss = T.softmax_xent(x, params["unembed"], l, cfg)
+        loss = T.softmax_xent(x, params["unembed"], l, cfg, mesh)
         return loss.detach(), _grads(loss, params)
 
     k = cfg.grad_accum
     if k <= 1:
-        return loss_and_grad(tokens, labels)
+        loss, grads = loss_and_grad(tokens, labels)
+        return loss, _sum_partial_grads(grads, cfg, mesh)
     b = tokens.shape[0]
     if b % k:
         raise ValueError(f"batch {b} does not split into {k} microbatches")
@@ -78,12 +88,26 @@ def lm_loss_and_grad(params, tokens, labels, cfg: LMConfig, mesh=None, *,
             a.add_(x.float())
         loss_acc = loss_acc + loss
     inv = 1.0 / k
-    return loss_acc * inv, tree_map(lambda g: g * inv, g_acc)
+    return loss_acc * inv, _sum_partial_grads(tree_map(lambda g: g * inv, g_acc), cfg, mesh)
+
+
+def _sum_partial_grads(grads, cfg: LMConfig, mesh):
+    """Each gradient summed in place over its ``T.grad_sum_axes``."""
+    if mesh is None:
+        return grads
+    axes = T.grad_sum_axes(cfg, mesh)
+    flat = [g.contiguous() for g in tree_leaves(grads)]
+    for g, ax in zip(flat, tree_leaves(axes), strict=True):
+        if ax:
+            mesh.all_reduce_(g, "sum", ax)
+    return tree_unflatten(grads, iter(flat))
 
 
 def lm_train_step(params, opt_state, tokens, labels, cfg: LMConfig, mesh=None):
     loss, grads = lm_loss_and_grad(params, tokens, labels, cfg, mesh)
-    params, opt_state, gnorm, _ = _apply_opt(params, opt_state, grads, opt_state.step)
+    specs = None if mesh is None else T.lm_param_specs(cfg, mesh)
+    params, opt_state, gnorm, _ = _apply_opt(params, opt_state, grads, opt_state.step,
+                                             mesh=mesh, specs=specs)
     return params, opt_state, {"loss": loss, "gnorm": gnorm}
 
 

@@ -352,6 +352,10 @@ def test_remat_changes_no_value_or_gradient():
 
 
 def test_one_rank_meshes_run_and_sharded_ones_raise():
+    """A one-rank mesh runs the one-device program; a mesh whose ``model``
+    axis does not divide the heads (qwen2-7b's smoke config has 4 query
+    and 2 KV heads) raises ``ValueError`` naming the limit before any
+    collective, on every entry point."""
     from repro_torch.launch.mesh import make_host_mesh
 
     _, cfg = _cfgs("qwen2-7b")
@@ -360,11 +364,12 @@ def test_one_rank_meshes_run_and_sharded_ones_raise():
     one = make_host_mesh(device="cpu")  # a world-1 gloo group, kept by the worker
     want, _ = T.lm_prefill(p, toks, cfg)
     assert torch.equal(T.lm_prefill(p, toks, cfg, one)[0], want)
-    for shape in ((2, 1), (1, 2)):
+    for shape, limit in (((1, 3), "n_heads = 4 does not split over model = 3"),
+                         ((2, 8), "n_heads = 4 does not split over model = 8")):
         mesh = types.SimpleNamespace(axis_names=("data", "model"), shape=shape)
         for call in (lambda: T.lm_forward(p, toks, cfg, mesh),
                      lambda: T.lm_prefill(p, toks, cfg, mesh)):
-            with pytest.raises(NotImplementedError, match="13d"):
+            with pytest.raises(ValueError, match=limit):
                 call()
 
 
