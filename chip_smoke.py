@@ -203,6 +203,23 @@ Phases:
      loss and gnorm within rel 1e-4 of one rank's, then a second step,
      timed; each rank's peak per run, logits equal on every rank, and
      none of the four kernels launched;
+  6n. the dry run (last, after 6m): (a) `python -m
+     repro_torch.launch.dryrun --mesh both` for mixtral-8x7b decode_32k,
+     gatedgcn full_graph_sm, xdeepfm train_batch and the MSF rmat_s23_e8
+     (each ok on 16x16 and 2x16x16) and qwen2-7b train_4k (which must fail
+     with check_mesh's ValueError), five processes at once; (b) in a fresh
+     process, the dry-run cell of qwen2-7b at 2 layers, 2 x 4,096 tokens,
+     train step, at 1x1, counted on meta tensors over a fake process group
+     and then run on the card over a 1x1 NCCL group: FlopCounterMode's
+     FLOPs and the argument bytes equal, the counted peak temporary bytes
+     within 25% of the allocator's peak above what was resident, the
+     cell's bound no larger than the measured step (median of 3 after a
+     warm-up); (c) the collective bytes of the fake 1x4 qwen2-7b decode
+     cell of 6m's request (its float32 weights) equal to those rank 0
+     counted over one real decode step of 6m (a); (d) solve.cost's
+     dist_round_terms bound of one 1x1 pack32 round of phase 5's R-MAT s20
+     no larger than 6j's measured round, beside 6i's flat predicted/solve;
+     none of the four kernels launched;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -2510,6 +2527,7 @@ def dist_path(g_rmat, g_rmat19, g_grid, flat_rep, coarsen_reps, device="cuda"):
             "flat": plan(g_rmat, SolveSpec()).solve,
             **{f"dist_{sc}_1x1": plan(part, SolveSpec(mode="dist", shortcut=sc),
                                       mesh=mesh).solve for sc in ("csp", "os", "baseline")}})
+        flat_row.update(n=n, e_max=part.e_max)
         row["flat rmat_s20_ef8"] = flat_row
         print(f"  medians: {json.dumps(flat_row['times'])}", flush=True)
 
@@ -3548,8 +3566,17 @@ def lm_mesh_work(meshes, device="cuda") -> dict:
     memory_mark()
     gen16, _, prefill_s, decode_s = serve.generate(params, toks, cfg, n, mesh)
     last = serve.generate(params, toks, cfg, 2, mesh)
-    prof = collective_share(lambda: T.lm_decode_step(
-        params, last[0][:, -1], last[1], p + 1, cfg, mesh))
+
+    def decode():
+        return T.lm_decode_step(params, last[0][:, -1], last[1], p + 1, cfg, mesh)
+
+    decode_coll = None
+    if mesh is None:
+        prof = collective_share(decode)
+    else:  # the bytes phase 6n (c) holds the dry run's decode cell against
+        with mesh.count_collectives() as counted:
+            prof = collective_share(decode)
+        decode_coll = {",".join(k): v for k, v in counted.items()}
     out["a"] = {"first_logits": first.cpu(), "tokens_f32": gen32.cpu(),
                 "check_dec": ends["dec"].cpu(), "check_full": ends["full"].cpu(),
                 "check_tokens": ends["seq"].cpu(), "tokens_bf16": gen16.cpu(),
@@ -3557,7 +3584,7 @@ def lm_mesh_work(meshes, device="cuda") -> dict:
                 "weights_read_bytes": lm_weight_bytes(params),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "resident_before": resident, "decode_profile": prof,
-                "seconds": time.perf_counter() - t_part}
+                "decode_collectives": decode_coll, "seconds": time.perf_counter() - t_part}
     del params, first, ends, last
     free_card()
     t_part = time.perf_counter()
@@ -3643,10 +3670,12 @@ def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def lm_mesh_path(smi: str, workdir: Path, device="cuda") -> dict:
+def lm_mesh_path(smi: str, workdir: Path, device="cuda") -> tuple[dict, dict]:
     """Phase 6m: :func:`lm_mesh_work` on one rank in this process, then on
     four gloo ranks on the one card, each checked against the one-rank
-    run; returns the whole phase's kernel launches (the ranks' summed)."""
+    run; returns the whole phase's kernel launches (the ranks' summed) and
+    the collective bytes rank 0 counted over one 1x4 decode step (by axis
+    set), which phase 6n (c) holds the dry run's count against."""
     import torch
 
     reset_counts()
@@ -3713,13 +3742,14 @@ def lm_mesh_path(smi: str, workdir: Path, device="cuda") -> dict:
                                       "one_rank_metrics": one["c"]["metrics"]},
         "launches": launches})
     print(json.dumps({"lm_mesh": rows, "card": smi}), flush=True)
-    return launches
+    return launches, r0["a"]["decode_collectives"]
 
 
 def lm_mesh_child(out_path: str) -> None:
     """Phase 6m's process: a fresh CUDA context and profiler, and the card's
     memory free for the one-rank run and then the four ranks. Writes the
-    phase's launches to ``out_path``."""
+    phase's launches and rank 0's decode-step collective bytes to
+    ``out_path``."""
     import tempfile
 
     import torch
@@ -3732,8 +3762,9 @@ def lm_mesh_child(out_path: str) -> None:
     t0 = time.perf_counter()
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
-        launches = lm_mesh_path(smi, Path(tmp) / "ranks")
-    Path(out_path).write_text(json.dumps(launches))
+        launches, decode_coll = lm_mesh_path(smi, Path(tmp) / "ranks")
+    Path(out_path).write_text(json.dumps({"launches": launches,
+                                          "decode_collectives": decode_coll}))
     print(f"  phase 6m took {time.perf_counter() - t0:.1f} s in its process", flush=True)
 
 
@@ -3945,6 +3976,262 @@ def lm_dist_cards():
         "peaks_by_rank": [{k: [row["max_memory_allocated"] for row in v]
                            for k, v in r.items() if isinstance(v, list)} for r in ranks]},
         "cards": smi}), flush=True)
+
+# ---------------------------------------------------------------------------
+# phase 6n: the dry run (one rank's program counted on a fake world of
+# H100s, launch/dryrun.py) and its counts held against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("--arch", "mixtral-8x7b", "--shape", "decode_32k"),
+                ("--arch", "gatedgcn", "--shape", "full_graph_sm"),
+                ("--arch", "xdeepfm", "--shape", "train_batch"),
+                ("--msf-only", "--shape", "rmat_s23_e8"),
+                ("--arch", "qwen2-7b", "--shape", "train_4k"))  # must fail by name
+DRYRUN_QWEN_ERROR = "ValueError: n_heads = 28 does not split over model = 16 ranks"
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_TRAIN = ("qwen2-7b", 2, 2, 4_096)  # 6l (c)'s cell: arch, layers, batch, tokens
+DRYRUN_PEAK_REL = 0.25
+DRYRUN_CHILD_TIMEOUT_S = 600
+
+
+def dryrun_cli(workdir: Path) -> tuple[list, dict]:
+    """Phase 6n (a): start ``python -m repro_torch.launch.dryrun --mesh
+    both`` once for each of :data:`DRYRUN_CELLS`, all at once; wait for
+    them. Returns the processes and the dry-run records by cell id; the
+    checks are :func:`check_dryrun_cli`'s."""
+    import os
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    try:
+        for i, flags in enumerate(DRYRUN_CELLS):
+            log = open(workdir / f"cli{i}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "both",
+                 "--outdir", str(workdir / f"cli{i}"), *flags], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    records = {}
+    for i, (p, _) in enumerate(procs):
+        for line in (workdir / f"cli{i}.log").read_text().splitlines():
+            if line.startswith(("[OK ]", "[FAIL]", "dry-run:")):
+                print(f"  {line[:260]}", flush=True)
+        for f in sorted((workdir / f"cli{i}").glob("*.json")):
+            rec = json.loads(f.read_text())
+            records[rec["cell"]] = rec
+    return [p.returncode for p, _ in procs], records
+
+
+def check_dryrun_cli(codes: list, records: dict) -> None:
+    """Every cell of :data:`DRYRUN_CELLS` recorded on both meshes; the
+    qwen2-7b cells failed with ``check_mesh``'s error (exit 1), every
+    other is ok (exit 0)."""
+    for flags, code in zip(DRYRUN_CELLS, codes):
+        want = 1 if "qwen2-7b" in flags else 0
+        check(code == want, f"dryrun {' '.join(flags)}: exit {code}, expected {want}")
+    check(len(records) == 2 * len(DRYRUN_CELLS),
+          f"dryrun: {len(records)} records for {len(DRYRUN_CELLS)} cells on two meshes")
+    for cell, rec in records.items():
+        if cell.startswith("qwen2-7b:"):
+            check(not rec["ok"] and rec.get("error") == DRYRUN_QWEN_ERROR,
+                  f"dryrun {cell}: {rec.get('error')!r}, expected {DRYRUN_QWEN_ERROR!r}")
+        else:
+            check(rec["ok"], f"dryrun {cell} failed: {rec.get('error')}")
+
+
+def dryrun_counts(device=None) -> dict:
+    """Phase 6n (b) and (c): the dry-run cell of :data:`DRYRUN_TRAIN` at a
+    1x1 mesh counted on meta tensors over a fake world, and the default
+    request's qwen2-7b decode cell at 1x4 (its collective bytes); then the
+    same train cell run for real on a 1x1 NCCL mesh on the card (``device
+    ="cpu"``: a gloo group on the CPU, to rehearse): its inputs' bytes,
+    ``FlopCounterMode``'s FLOPs over one step, the step's seconds (median
+    of 3 after a warm-up) and the allocator's peak above what was resident
+    before it. Checks the FLOPs and argument bytes equal, the peak within
+    :data:`DRYRUN_PEAK_REL` and the bound no larger than the step."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.roofline import roofline
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import cells, fakedist
+    from repro_torch.launch.mesh import make_mesh
+
+    arch, layers, batch, tokens = DRYRUN_TRAIN
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=layers)
+    shape = ShapeCell(name=f"train_{tokens}_b{batch}", kind="train", seq_len=tokens,
+                      global_batch=batch)
+    reset_counts()
+    t0 = time.perf_counter()
+    cell = cells.make_cell(arch, cfg, shape, fakedist.fake_mesh((1, 1), ("data", "model")))
+    fake = cells.run_cell(cell)
+    with FlopCounterMode(display=False) as fc:
+        cell.fn(*cell.make_args(fakedist.FAKE_DEVICE))
+    fake["flop_counter_mode"] = fc.get_total_flops()
+    rf = roofline(fake, n_devices=1)
+    b, p, n = LM_MESH_REQUEST
+    request = ShapeCell(name="request", kind="decode", seq_len=p + n, global_batch=b)
+    # 6m (a) serves its float32 master weights: the embedding rows are
+    # all-reduced in the table's dtype before the cast
+    dec = cells.run_cell(cells.make_cell(arch, registry.get_config(arch), request,
+                                         fakedist.fake_mesh((1, 4), ("data", "model")),
+                                         {"serve_param_dtype": "float32"}))
+    fakedist.teardown()
+    fake_s = time.perf_counter() - t0
+
+    on_card = device != "cpu"
+    dist.init_process_group("nccl" if on_card else "gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        cell = cells.make_cell(arch, cfg, shape, mesh)
+        args = cell.make_args(mesh.device)
+        arg_bytes = cells.tree_nbytes(args)
+        cell.fn(*args)  # warm-up: the allocator's pools, cuBLAS's workspace
+        times, peaks, requested = [], [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            asked = torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            cell.fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            peaks.append(torch.cuda.max_memory_allocated() - resident)
+            # the bytes the program asked for, before the allocator's rounding
+            requested.append(torch.cuda.memory_stats().get("requested_bytes.all.peak", 0) - asked)
+        with FlopCounterMode(display=False) as fc:
+            cell.fn(*args)
+        real_flops = fc.get_total_flops()
+        del args
+    finally:
+        dist.destroy_process_group()
+    step_s, peak = statistics.median(times), max(peaks)
+    fake_flops = sum(fake["flops"].values())
+    row = {"cell": f"{arch} {layers} layers, {batch} x {tokens}, train step, 1x1",
+           "fake_count_s": fake_s,
+           "flops": {"meta": fake_flops, "meta_flop_counter_mode": fake["flop_counter_mode"],
+                     "card_flop_counter_mode": real_flops},
+           "arg_bytes": {"meta": fake["arg_bytes"], "card": arg_bytes},
+           "temp_bytes": {"meta": fake["temp_bytes"], "card_peak_above_resident": peak,
+                          "meta_over_card": fake["temp_bytes"] / peak if peak else None,
+                          "card_requested_peak_above_resident": max(requested)},
+           "step_s": {"median": step_s, "all": times},
+           "roofline": {k: rf[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s",
+                                           "dominant", "bound_time_s")},
+           "bound_share_of_step": rf["bound_time_s"] / step_s,
+           "decode_1x4_collectives": {",".join(k): v for k, v in dec["collective"].items()},
+           "launches": all_launches()}
+    print(f"  (b) {row['cell']}: FLOPs meta {fake_flops} / card {real_flops}; args "
+          f"{fake['arg_bytes']} / {arg_bytes} B; temp meta {fake['temp_bytes']} B, card peak "
+          f"{peak} B ({row['temp_bytes']['meta_over_card']}); step {step_s * 1e3:.1f} ms, "
+          f"bound {rf['bound_time_s'] * 1e3:.1f} ms ({rf['dominant']}), "
+          f"{row['bound_share_of_step']:.3f} of the step", flush=True)
+    check(fake_flops == fake["flop_counter_mode"] == real_flops,
+          f"dryrun (b): FLOPs {fake_flops} (meta, by dtype), {fake['flop_counter_mode']} (meta, "
+          f"FlopCounterMode), {real_flops} (card) differ")
+    check(fake["arg_bytes"] == arg_bytes,
+          f"dryrun (b): argument bytes {fake['arg_bytes']} (meta) != {arg_bytes} (card)")
+    if on_card:
+        check(abs(fake["temp_bytes"] - peak) <= DRYRUN_PEAK_REL * peak,
+              f"dryrun (b): temporary bytes {fake['temp_bytes']} (meta) not within "
+              f"{DRYRUN_PEAK_REL} of the card's peak {peak}")
+    check(rf["bound_time_s"] <= step_s,
+          f"dryrun (b): bound {rf['bound_time_s']} s above the measured step {step_s} s")
+    return row
+
+
+def dryrun_child(out_path: str) -> None:
+    """Phase 6n (b) and (c)'s process: a fake process group and then a real
+    one, each the process's default group in turn."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    Path(out_path).write_text(json.dumps(dryrun_counts()))
+
+
+DRYRUN_CHILD = "import sys, chip_smoke; chip_smoke.dryrun_child(sys.argv[1])"
+
+
+def dryrun_path(smi: str, decode_coll: dict, dist_row: dict, flat_cost: dict) -> dict:
+    """Phase 6n: (a) the dry-run CLI on both production meshes for a cell of
+    each family and the MSF, beside (b) and (c) in a child process; (c)
+    the fake 1x4 decode cell's collective bytes against rank 0's over one
+    real decode step of 6m (``decode_coll``); (d) ``dist_round_terms``'s
+    bound of one 1x1 R-MAT s20 pack32 round against 6j's measured round
+    (``dist_row``), beside the flat model's predicted/solve (``flat_cost``)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.analysis.roofline import roofline_time_s
+    from repro_torch.graphs.partition import pad_n
+    from repro_torch.kernels import build
+    from repro_torch.solve import SolveSpec
+    from repro_torch.solve.cost import dist_round_terms
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp, \
+            ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        cli = pool.submit(dryrun_cli, Path(tmp) / "cli")
+        counts = run_child(DRYRUN_CHILD, "6n", DRYRUN_CHILD_TIMEOUT_S)
+        codes, records = cli.result()
+        cli_s = time.perf_counter() - t0
+    check_dryrun_cli(codes, records)
+    row = {"cli_records": {k: {f: v.get(f) for f in (
+        "ok", "error", "compile_s", "flops_per_device", "bytes_per_device",
+        "collective_bytes_per_device", "collective_bytes_by_axes", "dominant", "bound_time_s",
+        "t_compute_s", "t_memory_s", "t_collective_s", "arg_bytes_per_device",
+        "temp_bytes_per_device")} for k, v in records.items()},
+        "cli_and_child_s": cli_s, "counts_on_the_card": counts}
+
+    # (c)
+    fake_coll = counts["decode_1x4_collectives"]
+    print(f"  (c) qwen2-7b decode at 1x4: meta cell {fake_coll}, 6m rank 0 {decode_coll}",
+          flush=True)
+    check(fake_coll == decode_coll,
+          f"dryrun (c): the decode cell's collective bytes {fake_coll} != 6m's {decode_coll}")
+    row["decode_1x4_collectives"] = {"meta_cell": fake_coll, "card_6m_rank0": decode_coll}
+
+    # (d)
+    fr = dist_row["flat rmat_s20_ef8"]
+    n_pad, size = pad_n(fr["n"], 1, 1)
+    rnd = dist_round_terms(rows=1, cols=1, e_max=fr["e_max"], shard_size=size, pack=True,
+                           capacity=min(SolveSpec().capacity, n_pad))
+    bound = roofline_time_s(dot_flops=0.0, ew_ops=sum(o for _, o in rnd.terms.values()),
+                            bytes_=sum(b for b, _ in rnd.terms.values()))
+    measured = fr["times"]["dist_csp_1x1_s"] / fr["csp"]["rounds"]
+    row["dist_round_1x1"] = {"bound_s": bound, "measured_round_s": measured,
+                             "bound_over_round": bound / measured,
+                             "flat_model_predicted_over_solve": flat_cost["predicted_over_solve"],
+                             "terms_bytes": {k: v[0] for k, v in rnd.terms.items()}}
+    print(f"  (d) R-MAT s20 dist round at 1x1: bound {bound * 1e3:.3f} ms, measured "
+          f"{measured * 1e3:.3f} ms ({bound / measured:.3f}; the flat model's "
+          f"predicted/solve {flat_cost['predicted_over_solve']:.3f})", flush=True)
+    check(bound <= measured,
+          f"dryrun (d): the dist round's bound {bound} s above the measured round {measured} s")
+    print(json.dumps({"dryrun": row, "card": smi}), flush=True)
+    return row
+
 
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
     """Median end-to-end solve seconds of each spec (planning included),
@@ -4298,10 +4585,20 @@ def main():
 
     phase("6m the mesh-sharded LM: four gloo ranks on the one card (in its own process)")
     t0 = time.perf_counter()
-    lm_mesh_launches = run_child(LM_MESH_CHILD, "6m", LM_MESH_CHILD_TIMEOUT_S)
+    lm_mesh_out = run_child(LM_MESH_CHILD, "6m", LM_MESH_CHILD_TIMEOUT_S)
+    lm_mesh_launches = lm_mesh_out["launches"]
     check(not any(lm_mesh_launches.values()),
           f"lm mesh: kernel launches {lm_mesh_launches}, expected none")
     print(f"  phase 6m took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("6n the dry run: cells on fake production meshes, counts held against the card")
+    t0 = time.perf_counter()
+    dryrun_row = dryrun_path(smi, lm_mesh_out["decode_collectives"], dist_row,
+                             cost_rows["flat rmat_s20_ef8"])
+    dryrun_launches = dryrun_row["counts_on_the_card"]["launches"]
+    check(not any(dryrun_launches.values()),
+          f"dryrun: kernel launches {dryrun_launches}, expected none")
+    print(f"  phase 6n took {time.perf_counter() - t0:.1f} s", flush=True)
     mean_dense = {k: statistics.fmean(r[k] for r in dense_rows) for k in fields
                   if k != "library_ms"}
     mean_bucketed = {k: statistics.fmean(r[k] for r in bucket_rows) for k in fields}
@@ -4326,7 +4623,8 @@ def main():
             **dist_launches["segment_min_flat"],
             "train": train_launches["segment_min_flat"],
             "lm": lm_launches["segment_min_flat"],
-            "lm_sharded": lm_mesh_launches["segment_min_flat"]},
+            "lm_sharded": lm_mesh_launches["segment_min_flat"],
+            "dryrun": dryrun_launches["segment_min_flat"]},
         "matches_plain": True,
         "max_abs_err": max_err,
         "ms": mean["kernel_ms"],
@@ -4354,7 +4652,8 @@ def main():
                              **dist_launches["segment_min_sorted"],
                              "train": train_launches["segment_min_sorted"],
                              "lm": lm_launches["segment_min_sorted"],
-                             "lm_sharded": lm_mesh_launches["segment_min_sorted"]},
+                             "lm_sharded": lm_mesh_launches["segment_min_sorted"],
+            "dryrun": dryrun_launches["segment_min_sorted"]},
         "matches_plain": True,
         "max_abs_err": max_err_sorted,
         "ms": mean_sorted["kernel_ms"],
@@ -4375,7 +4674,8 @@ def main():
         "launches_by_path": {"entry points": entry_launches["multilinear_dense"],
                              "train": train_launches["multilinear_dense"],
                              "lm": lm_launches["multilinear_dense"],
-                             "lm_sharded": lm_mesh_launches["multilinear_dense"]},
+                             "lm_sharded": lm_mesh_launches["multilinear_dense"],
+            "dryrun": dryrun_launches["multilinear_dense"]},
         "matches_plain": True,
         "max_abs_err": max(max_err_dense, entry_err["multilinear_dense"]),
         "ms": mean_dense["kernel_ms"],
@@ -4397,7 +4697,8 @@ def main():
         "launches_by_path": {"entry points": entry_launches["segment_min_bucketed"],
                              "train": train_launches["segment_min_bucketed"],
                              "lm": lm_launches["segment_min_bucketed"],
-                             "lm_sharded": lm_mesh_launches["segment_min_bucketed"]},
+                             "lm_sharded": lm_mesh_launches["segment_min_bucketed"],
+            "dryrun": dryrun_launches["segment_min_bucketed"]},
         "matches_plain": True,
         "max_abs_err": max(max_err_bucketed, entry_err["segment_min_bucketed"]),
         "ms": mean_bucketed["kernel_ms"],

@@ -35,11 +35,21 @@ makes the gradient of a replicated tensor whole on every rank.
 ``torch.distributed.nn.functional.all_reduce`` is not :func:`reduce_from`:
 its backward all-reduces again, which multiplies a gradient that is
 already replicated by the number of ranks.
+
+:meth:`Mesh.count_collectives` records, while it is open, the bytes of
+every collective the mesh runs, by the set of axes it runs over: the
+operand of an all-reduce or a reduce-scatter, the result of an
+all-gather (the reference's ``hlo_analyzer`` definition). Each public
+collective counts once, also where it is built on another, and a group
+of one rank moves nothing and is not counted. The backward passes of the
+differentiable collectives call the same methods and so count too.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+from collections import Counter
 
 import numpy as np
 import torch
@@ -99,6 +109,7 @@ class Mesh:
         self.device = torch.device(device)
         self.backend = dist.get_backend()
         self._groups = self._make_groups()
+        self._counts = None  # a Counter while count_collectives is open
 
     def _make_groups(self) -> dict:
         """This rank's subgroup for every non-empty subset of the axes.
@@ -161,9 +172,30 @@ class Mesh:
         """This rank's subgroup over ``axes``."""
         return self._groups[self._subset(axes)]
 
+    @contextlib.contextmanager
+    def count_collectives(self):
+        """While open, the bytes of this mesh's collectives accumulate in the
+        ``Counter`` it yields, keyed by the tuple of axis names each ran
+        over (in mesh order)."""
+        outer, counts = self._counts, Counter()
+        self._counts = counts
+        try:
+            yield counts
+        finally:
+            self._counts = outer
+            if outer is not None:
+                outer.update(counts)
+
+    def _count(self, axes, nbytes: int) -> None:
+        if self._counts is not None:
+            subset = self._subset(axes)
+            if math.prod(self.shape[i] for i in subset) > 1:
+                self._counts[tuple(self.axis_names[i] for i in subset)] += int(nbytes)
+
     def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
         """``x`` of every rank along ``axes``, concatenated along dim 0 in
         row-major order (JAX's ``all_gather(..., tiled=True)``)."""
+        self._count(axes, x.nbytes * self.axis_size(axes))
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.axis_size(axes))]
         dist.all_gather(parts, x, group=self.group(axes))
@@ -172,12 +204,14 @@ class Mesh:
     def all_reduce(self, x: torch.Tensor, op: str, axes) -> torch.Tensor:
         """A new tensor: ``x`` reduced with ``op`` ("min", "max" or
         "sum") over the ranks along ``axes``; ``x`` is left as it is."""
+        self._count(axes, x.nbytes)
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=_OPS[op], group=self.group(axes))
         return out
 
     def all_reduce_(self, x: torch.Tensor, op: str, axes) -> torch.Tensor:
         """``x`` (contiguous) reduced in place; returns ``x``."""
+        self._count(axes, x.nbytes)
         dist.all_reduce(x, op=_OPS[op], group=self.group(axes))
         return x
 
@@ -186,16 +220,19 @@ class Mesh:
         dist.barrier(group=dist.group.WORLD)
 
     def gather_dim(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
-        """``x`` of every rank along ``axes`` concatenated along ``dim``."""
+        """``x`` of every rank along ``axes`` concatenated along ``dim``
+        (counted by the all-gather it runs)."""
         if dim == 0:
             return self.all_gather(x, axes)
         return self.all_gather(x.movedim(dim, 0), axes).movedim(0, dim).contiguous()
 
     def reduce_scatter(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The sum of ``x`` over the ranks along ``axes``, cut into equal
-        parts along ``dim``: this rank's part."""
+        parts along ``dim``: this rank's part. Counted as its operand, by
+        the all-reduce it runs where the backend has no reduce-scatter."""
         n, i = self.axis_size(axes), self.axis_index(axes)
         if self.backend == "nccl":
+            self._count(axes, x.nbytes)
             xs = x.movedim(dim, 0).contiguous()
             out = xs.new_empty((xs.shape[0] // n,) + tuple(xs.shape[1:]))
             dist.reduce_scatter_tensor(out, xs, group=self.group(axes))

@@ -6,6 +6,15 @@ clipped into range, as the reference's ``jnp.take(mode="clip")``: a
 corrupt id never poisons a step, and on the card it never device-asserts.
 Multi-hot bags are the same gather plus a segment sum. Retrieval scores one
 query against every candidate and keeps the top k.
+
+On a :class:`~repro_torch.launch.mesh.Mesh` (``mesh=``) the embedding
+tables are split by rows over ``model`` (the reference's
+``P("model", None)``): a rank looks up the ids that fall in its rows,
+zeroes the others and the ranks' rows are summed over ``model``
+(``reduce_from``), so every rank holds the whole lookup of its ids. The
+ids are the rank's rows of the batch (the caller splits it over the data
+axes). Retrieval's candidates are split over every axis: a rank keeps the
+top k of its block and the blocks' winners are gathered and cut to k.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.launch.mesh import live_axes, reduce_from
 from repro_torch.models.gnn import Init, ParamModel, Params, segment_sum
 
 
@@ -63,6 +73,21 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids.clamp(0, table.shape[0] - 1).long(), table)
 
 
+def embedding_bag_sharded(block: torch.Tensor, ids: torch.Tensor, mesh) -> torch.Tensor:
+    """ids [B, F] (absolute row ids, clipped into the whole table) → [B, F, d]
+    from ``block``, this rank's rows of a table split over ``model``: the
+    rows of other ranks are zero here and the sum over ``model`` fills
+    them in. Without a live ``model`` axis, :func:`embedding_bag`."""
+    axes = live_axes(mesh, "model")
+    if not axes:
+        return embedding_bag(block, ids)
+    v = block.shape[0]
+    rel = ids.clamp(0, v * mesh.axis_size(axes) - 1).long() - mesh.axis_index(axes) * v
+    inside = (rel >= 0) & (rel < v)
+    rows = F.embedding(rel.clamp(0, v - 1), block)
+    return reduce_from(torch.where(inside[..., None], rows, 0.0), mesh, axes)
+
+
 def embedding_bag_multihot(table: torch.Tensor, flat_ids: torch.Tensor, bag_ids: torch.Tensor,
                            n_bags: int) -> torch.Tensor:
     """EmbeddingBag(sum) over arbitrary bag ids in [0, n_bags): gather +
@@ -83,10 +108,11 @@ def _cin(params: Params, x0: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
     return p @ params["cin_out"]  # [B, 1]
 
 
-def xdeepfm_logits(params: Params, ids: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
+def xdeepfm_logits(params: Params, ids: torch.Tensor, cfg: RecsysConfig,
+                   mesh=None) -> torch.Tensor:
     """ids [B, F] absolute row indices → logits [B]."""
-    emb = embedding_bag(params["table"], ids)  # [B, F, D]
-    lin = embedding_bag(params["lin_table"], ids)[..., 0].sum(-1)  # [B]
+    emb = embedding_bag_sharded(params["table"], ids, mesh)  # [B, F, D]
+    lin = embedding_bag_sharded(params["lin_table"], ids, mesh)[..., 0].sum(-1)  # [B]
     cin = _cin(params, emb, cfg)[..., 0]
     h = emb.reshape(emb.shape[0], -1)
     n_mlp = len(cfg.mlp_layers) + 1
@@ -97,8 +123,8 @@ def xdeepfm_logits(params: Params, ids: torch.Tensor, cfg: RecsysConfig) -> torc
     return lin + cin + h[..., 0] + params["bias"]
 
 
-def xdeepfm_loss(params: Params, ids, labels, cfg: RecsysConfig) -> torch.Tensor:
-    logits = xdeepfm_logits(params, ids, cfg)
+def xdeepfm_loss(params: Params, ids, labels, cfg: RecsysConfig, mesh=None) -> torch.Tensor:
+    logits = xdeepfm_logits(params, ids, cfg, mesh)
     return torch.mean(
         torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
     )
@@ -124,11 +150,21 @@ def init_retrieval(cfg: RecsysConfig, n_candidates: int, generator=None,
     })
 
 
-def retrieval_topk(params: Params, ids: torch.Tensor, cfg: RecsysConfig, k: int = 100):
+def retrieval_topk(params: Params, ids: torch.Tensor, cfg: RecsysConfig, k: int = 100,
+                   mesh=None):
     """ids [B, F] (user features) → (scores [B, k], indices [B, k]), scores
     descending. The order among equal scores is not part of the contract
-    (``torch.topk`` on the card promises none)."""
-    emb = embedding_bag(params["table"], ids).reshape(ids.shape[0], -1)
+    (``torch.topk`` on the card promises none). On a mesh ``items`` is this
+    rank's block of the candidates split over every axis."""
+    emb = embedding_bag_sharded(params["table"], ids, mesh).reshape(ids.shape[0], -1)
     u = emb @ params["tower_w"]  # [B, r]
-    scores = u @ params["items"].T  # [B, n_candidates]
-    return torch.topk(scores, k)
+    items = params["items"]
+    scores = u @ items.T  # [B, this rank's candidates]
+    axes = () if mesh is None else live_axes(mesh, mesh.axis_names)
+    if not axes:
+        return torch.topk(scores, k)
+    vals, idx = torch.topk(scores, min(k, scores.shape[1]))
+    idx = idx + mesh.axis_index(axes) * items.shape[0]
+    vals, idx = mesh.gather_dim(vals, axes, 1), mesh.gather_dim(idx, axes, 1)
+    top, j = torch.topk(vals, k)
+    return top, torch.gather(idx, 1, j)

@@ -36,7 +36,9 @@ Scope and units, as in the reference:
   number the undirected edges). When ``n <= cutoff`` no level runs and
   the flat cost is reported.
 - **stream, dist, int or partitioned targets, variants other than
-  "complete"** — ``None``.
+  "complete"** — ``None``, as in the reference. One Fig-2 round of the
+  dist driver on one rank is counted by :func:`dist_round_terms`, which
+  the dry run's MSF cells call (``launch/cells.py``), not ``plan_cost``.
 
 What the model cannot see: the pointer-jump steps a round really takes
 (data-dependent; charged as ``SHORTCUT_STEPS``), the live share of the
@@ -46,7 +48,7 @@ host time. Every failure yields ``None`` rather than a failed plan.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.analysis.roofline import H100_SXM, roofline_time_s
 
@@ -253,6 +255,128 @@ def flat_round_terms(n: int, e: int, rs) -> dict:
         _csp_shortcut(t, n, rs.spec.capacity)
     t.ew("shortcut", n, 2 * _I32, 0)  # torch.equal(p_next, p_prev)
     return t.terms
+
+
+class DistRound(NamedTuple):
+    """One Fig-2 round of the dist driver on one rank."""
+
+    terms: Dict[str, Tuple[float, float]]  # term -> (device bytes, int32 ops)
+    collective: Dict[tuple, int]  # axis names -> bytes, as Mesh.count_collectives keys them
+    temp_bytes: int  # the arrays live at the round's peak, beside its five edge blocks
+
+
+def dist_round_terms(*, rows: int, cols: int, e_max: int, shard_size: int, pack: bool,
+                     shortcut: str = "csp", capacity: int = 1 << 16,
+                     row_axes: tuple = ("data",), col_axis: str = "model") -> DistRound:
+    """One round of ``core/msf_dist.py::build_dist_driver`` on one rank of
+    a ``rows`` × ``cols`` grid, from shapes: ``n = rows·cols·shard_size``
+    parent slots, ``e_max`` edge slots in the rank's block. The row and
+    column gathers of the parent vector (``gathers``), the pack32 keys or
+    the masked float keys (``key_build``), the local reduction over the
+    ``e_max`` edges (``segment_min``, every slot live), the two ⊕-combine
+    passes (``combine``: each all-reduce copies its operand), the
+    winners' payload (``payload``), hook and record over the replicated
+    ``n`` (``hook``, ``record``: counted as the flat round counts them)
+    and the shortcut of the rank's shard (``shortcut``: CSP's changed map
+    applied in one pass, or ``SHORTCUT_STEPS`` sub-iterations of the
+    baseline's grid all-gather). Collective bytes as the mesh counts
+    them: an all-gather's result, an all-reduce's operand, nothing over an
+    axis of one rank. CSP is charged as if the changed map fits
+    ``capacity`` (the driver falls back to the baseline when it does not)."""
+    if shortcut not in ("csp", "os", "baseline"):
+        raise ValueError(f"unknown distributed shortcut {shortcut!r}")
+    n, s_ = rows * cols * shard_size, shard_size
+    row_axes = tuple(row_axes) if isinstance(row_axes, (tuple, list)) else (row_axes,)
+    grid_axes = row_axes + (col_axis,)
+    col_key, row_key = (col_axis,), row_axes
+    coll: Dict[tuple, int] = {}
+
+    def collective(key, nbytes, ranks):
+        if ranks > 1:
+            coll[key] = coll.get(key, 0) + int(nbytes)
+
+    t = _Tally()
+    row_blk, col_blk = cols * s_, rows * s_
+    # all-gather of p over the columns (row block) and over the rows (column
+    # block): the parts written, then concatenated
+    for k, key, ranks in ((row_blk, col_key, cols), (col_blk, row_key, rows)):
+        collective(key, k * _I32, ranks)
+        t.add("gathers", 3 * k * _I32)
+    t.gather("gathers", e_max, _I32)  # x_row[src_row]
+    t.gather("gathers", e_max, _I32)  # y_col[dst_col]
+    t.ew("key_build", e_max, 2 * _I32, _B)  # ps != pd
+    t.ew("key_build", e_max, 2 * _B, _B)  # & valid
+
+    def allreduce(key, k, val, ranks):
+        collective(key, k * val, ranks)
+        t.add("combine", 2 * k * val)  # the copy the all-reduce runs on
+
+    if pack:
+        _key_build(t, e_max)
+        _segmin_packed(t, e_max, n)
+        for key, ranks in ((col_key, cols), (row_key, rows)):
+            allreduce(key, n, _I64, ranks)
+        _unpack(t, "payload", n)
+        t.gather("payload", e_max, _I64)  # minkey[ps]
+        t.ew("payload", e_max, 2 * _I64, _B)  # key == minkey[ps]
+        t.ew("payload", e_max, 2 * _B, _B)  # outgoing &
+        t.ew("payload", e_max, _B, 0)  # nonzero: read
+        t.add("payload", n * _I64)  # nonzero: the winners (at their bound)
+        t.gather("payload", n, _I32, idx32=False)  # pd[win]
+        t.gather("payload", n, _I32, idx32=False)  # ps[win]
+        t.scatter_min("payload", n, _I32, n)  # the payload segment-min
+        for key, ranks in ((col_key, cols), (row_key, rows)):
+            allreduce(key, n, _I32, ranks)
+        temp = e_max * (2 * _I32 + _B + 2 * _I64) + 2 * n * _I64
+    else:  # segment_argmin, then allreduce_argmin over each axis
+        t.ew("index_casts", e_max, _I32, _I64)  # seg.long()
+        t.ew("payload", e_max, _B + _F32, _F32)  # where(valid, w, inf)
+        t.scatter_min("segment_min", e_max, _F32, n, idx32=False)
+        t.gather("payload", e_max, _F32, idx32=False)  # minw[seg]
+        t.ew("payload", e_max, 2 * _F32, _B)  # ==
+        t.ew("payload", e_max, 2 * _B, _B)  # & valid
+        t.ew("payload", e_max, _B + _I32, _I32)  # where(on_min, eid, IMAX)
+        t.scatter_min("segment_min", e_max, _I32, n, idx32=False)
+        t.gather("payload", e_max, _I32, idx32=False)  # mineid[seg]
+        t.ew("payload", e_max, 2 * _I32, _B)  # ==
+        t.ew("payload", e_max, 2 * _B, _B)  # &
+        t.ew("payload", e_max, _B + _I32, _I32)  # where(winner, pd, IMAX)
+        t.scatter_min("segment_min", e_max, _I32, n, idx32=False)
+        for key, ranks in ((col_key, cols), (row_key, rows)):
+            allreduce(key, n, _F32, ranks)  # minw
+            t.ew("combine", n, 2 * _F32, _B)  # on_min
+            t.ew("combine", n, _B + _I32, _I32)  # where(on_min, eid, IMAX)
+            allreduce(key, n, _I32, ranks)  # mineid
+            t.ew("combine", n, 2 * _I32, _B)  # ==
+            t.ew("combine", n, 2 * _B, _B)  # winner
+            t.ew("combine", n, _B + _I32, _I32)  # where(winner, p, IMAX)
+            allreduce(key, n, _I32, ranks)  # payload
+        temp = e_max * (2 * _I32 + _B + _F32) + 6 * n * _I32
+    _hook_record(t, n)
+    if shortcut == "baseline":
+        for _ in range(SHORTCUT_STEPS):
+            collective(grid_axes, n * _I32, rows * cols)
+            t.add("shortcut", 3 * n * _I32)  # the grid all-gather's parts and concatenation
+            t.gather("shortcut", s_, _I32, idx32=True)  # p_full[p_local]
+            t.ew("shortcut", s_, 2 * _I32, _B)  # !=
+            t.ew("shortcut", s_, _B, 0)  # .any()
+            collective(grid_axes, _I32, rows * cols)  # moved flag, all-reduce(max)
+    else:  # _csp_apply: compress the changed map, one pass over the shard
+        cap = min(capacity, n)
+        search = max(1, (cap - 1).bit_length())
+        for _ in range(CSP_COMPRESS_STEPS):
+            t.add("shortcut", cap * (_I32 + _I64 + search * _I32), cap * search)
+            t.gather("shortcut", cap, _I32, idx32=False)
+            t.ew("shortcut", cap, 3 * _I32, _I32, 3)
+        t.ew("shortcut", s_, _B + 2 * _I32, _I32)  # where(keep_loc, r_parent, p)
+        t.add("shortcut", s_ * (_I32 + _I64 + search * _I32), s_ * search)  # searchsorted
+        t.gather("shortcut", s_, _I32, idx32=False)  # ids[j]
+        t.gather("shortcut", s_, _I32, idx32=False)  # vals[j]
+        t.ew("shortcut", s_, 3 * _I32, _I32, 2)  # where(ids[j] == p, vals[j], p)
+    # i and msf_eids [n], the row and column blocks of p, and the round's
+    # widest arrays
+    temp += 2 * n * _I32 + (row_blk + col_blk) * _I32
+    return DistRound(t.terms, coll, int(temp))
 
 
 def _next_pow2(k: int, floor: int) -> int:

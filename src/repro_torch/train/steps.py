@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
+from repro_torch.launch.mesh import P, live_axes, reduce_from
 from repro_torch.models import gnn as G
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
@@ -179,18 +180,40 @@ def gnn_train_step(params, opt_state, batch, cfg: GNNConfig, n_graphs: int = 1):
 # recsys
 # ---------------------------------------------------------------------------
 
-def recsys_train_step(params, opt_state, ids, labels, cfg: RecsysConfig):
-    loss = R.xdeepfm_loss(params, ids, labels, cfg)
+def recsys_specs(params, mesh) -> Dict[str, P]:
+    """The layout of an xDeepFM or retrieval tree on ``mesh``: the tables
+    split by rows over ``model``, the candidates over every axis, the rest
+    whole on every rank."""
+    split = {"table": P(T.MODEL, None), "lin_table": P(T.MODEL, None),
+             "items": P(tuple(mesh.axis_names), None)}
+    return {k: split.get(k, P()) for k in params}
+
+
+def recsys_train_step(params, opt_state, ids, labels, cfg: RecsysConfig, mesh=None):
+    """On a mesh ``ids``/``labels`` are this rank's rows of the batch,
+    split over the data axes: the loss is the global mean, and every
+    gradient is summed over the data axes (the dense part runs alike on
+    every ``model`` rank)."""
+    loss = R.xdeepfm_loss(params, ids, labels, cfg, mesh)
+    specs, dp = None, ()
+    if mesh is not None:
+        specs, dp = recsys_specs(params, mesh), live_axes(mesh, T.DP_AXES)
+    if dp:  # each data rank's share of the global mean, summed
+        loss = reduce_from(loss / mesh.axis_size(dp), mesh, dp)
     grads = _grads(loss, params)
-    params, opt_state, gnorm, _ = _apply_opt(params, opt_state, grads, opt_state.step)
+    if dp:
+        for g in tree_leaves(grads):
+            mesh.all_reduce_(g, "sum", dp)
+    params, opt_state, gnorm, _ = _apply_opt(params, opt_state, grads, opt_state.step,
+                                             mesh=mesh, specs=specs)
     return params, opt_state, {"loss": loss.detach(), "gnorm": gnorm}
 
 
 @torch.no_grad()
-def recsys_serve_step(params, ids, cfg: RecsysConfig):
-    return torch.sigmoid(R.xdeepfm_logits(params, ids, cfg))
+def recsys_serve_step(params, ids, cfg: RecsysConfig, mesh=None):
+    return torch.sigmoid(R.xdeepfm_logits(params, ids, cfg, mesh))
 
 
 @torch.no_grad()
-def recsys_retrieval_step(params, ids, cfg: RecsysConfig, k: int = 100):
-    return R.retrieval_topk(params, ids, cfg, k=k)
+def recsys_retrieval_step(params, ids, cfg: RecsysConfig, k: int = 100, mesh=None):
+    return R.retrieval_topk(params, ids, cfg, k=k, mesh=mesh)

@@ -57,3 +57,27 @@ def test_runtime_imports_stay_clean():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 5  # the subpackages were all walked
+
+
+#: torch internals the dry run leans on: imported by ``launch/fakedist.py``
+#: alone, so a torch upgrade that moves one breaks that file by name
+INTERNAL = ("torch.testing._internal", "torch.utils._python_dispatch", "torch.utils._pytree",
+            "torch.utils.weak", "torch._subclasses")
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    ids=[str(p.relative_to(ROOT)) for p in PORT_FILES] + ["chip_smoke.py"],
+)
+def test_torch_internals_only_in_fakedist(path):
+    modules = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            modules.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            modules.add(node.module)
+    internal = {m for m in modules if m.startswith(INTERNAL)}
+    if path.name == "fakedist.py":
+        assert "torch.testing._internal.distributed.fake_pg" in internal
+    else:
+        assert not internal, f"{path.relative_to(ROOT)} imports {sorted(internal)}"
