@@ -92,9 +92,14 @@ Phases:
      of the grid and one stream update with obs off, "metrics" and
      "trace": identical reports, one msf.round span per AS round, the
      exported traces accepted by tools/check_trace.py, host syncs per
-     flat solve (40 with obs off and with "metrics"; "trace" adds one
-     explicit sync per msf.round span and one for msf.flat) and median
-     solve times per mode;
+     flat solve (40 with obs off and with "metrics"; "trace" adds five a
+     round, the spans' own, and one for msf.flat; the traced solve's
+     host_syncs tally equals the untraced count) and median solve times
+     per mode; then each benchmark cell's graph (BENCHMARK.json, made as
+     msfbench makes it): the tally against the untraced and the traced
+     solve's syncs, the per-round spans, and the cost of tracing
+     (``python3 chip_smoke.py --phase 6h`` runs the build and this phase
+     alone);
   6i. cost, tuner and load harness: plan.cost of the flat plans of phase
      5's and 6's graphs and the coarsen plans of 6b's and 6c's, its
      roofline prediction for the report's rounds beside the median solve
@@ -300,6 +305,8 @@ LOADGEN_QPS0 = 10_000
 LOADGEN_ATTEMPTS = 3
 # Host syncs of one flat R-MAT s20 solve (5 AS rounds; phase 6h, PR 16).
 FLAT_RMAT_SYNCS = 40
+# Phase 6h on the benchmark's cells (BENCHMARK.json): solves timed per obs mode.
+BENCH_CELLS = {"g500-s25.solve": 3, "g500-s24.coarsen": 6}
 # Phase 6j: the 2x2 grid as four processes on the one card, over gloo.
 DIST_GRID = (2, 2)
 DIST_JOIN_TIMEOUT_S = 300
@@ -1884,6 +1891,7 @@ def obs_path(g_flat, g_coarsen, device="cuda") -> dict:
                 rounds = [e for e in obs.trace_events() if e[0] == "msf.round"]
                 check(len(rounds) == reps[m].iterations,
                       f"obs: {len(rounds)} msf.round spans for {reps[m].iterations} rounds")
+                tally = [e[4]["host_syncs"] for e in obs.trace_events() if e[0] == "solve.flat"]
                 check(read_counts()["segment_min_flat"] == reps[m].iterations or device == "cpu",
                       "obs: the traced flat solve did not launch the kernel once a round")
                 obs.export_trace(str(tmp / "flat.json"))
@@ -1897,9 +1905,15 @@ def obs_path(g_flat, g_coarsen, device="cuda") -> dict:
         syncs = row["host_syncs_per_flat_solve"]
         check(device == "cpu" or syncs["off"] == 40,
               f"obs: {syncs['off']} host syncs per flat solve with obs off, not 40")
+        # trace adds the spans' own syncs: msf.round, its three phase spans
+        # and the read of msf.counts each round, msf.flat once; the
+        # program's tally counts what the untraced solve waits
         check(device == "cpu" or syncs["metrics"] == syncs["off"]
-              and syncs["trace"] == syncs["off"] + reps["off"].iterations + 1,
+              and syncs["trace"] == syncs["off"] + 5 * reps["off"].iterations + 1,
               f"obs: host syncs per flat solve {syncs} for {reps['off'].iterations} rounds")
+        row["host_syncs_tally_flat"] = tally[0]
+        check(device == "cpu" or tally == [syncs["off"]],
+              f"obs: the traced solve's host_syncs {tally}, count_syncs {syncs['off']}")
         row["flat_solve_median_s"] = solve_times(
             g_flat, {m: SolveSpec(obs=m) for m in modes})
         obs.reset()
@@ -1939,6 +1953,88 @@ def obs_path(g_flat, g_coarsen, device="cuda") -> dict:
         obs.metrics_reset()
         shutil.rmtree(tmp, ignore_errors=True)
     return row
+
+
+def bench_cell_graph(cell: str):
+    """The graph and the ``SolveSpec`` keywords of one cell of
+    BENCHMARK.json, made on the card as ``msfbench`` makes them."""
+    sys.path.insert(0, str(ROOT))
+    from msfbench import harness
+    from msfbench.gen import kronecker
+    from msfbench.loops.solve import PortSolver
+
+    bench = harness.load_json(ROOT / "BENCHMARK.json")
+    w = harness.workload(bench, cell)
+    cfg = harness.load_json(ROOT / harness.config_entry(bench, w["config"])["file"])
+    spec = harness.load_json(harness.traffic_path(w["traffic"])).get("spec") or {}
+    e = kronecker.base_edges(cfg, int(cfg["graph_seed"]), 0, "cuda")
+    return PortSolver("cuda", spec).graph(e), spec
+
+
+def bench_cells_obs(cells=BENCH_CELLS) -> dict:
+    """Phase 6h on each benchmark cell's own graph and path: the traced
+    solve's ``host_syncs`` tally against the untraced solve's syncs, and
+    against the traced solve's less the spans' own (the synced spans'
+    explicit syncs, one msf.counts read per AS round); the per-round spans
+    of one traced solve; the cost of tracing: solves with obs off and
+    trace in turns, no profiler."""
+    import gc
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.solve import SolveSpec, clear_plan_cache, plan
+
+    rows = {}
+    for cell, reps in cells.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        g, kw = bench_cell_graph(cell)
+        spec = {m: SolveSpec(**kw, obs=m) for m in ("off", "trace")}
+        solve_span = f"solve.{spec['off'].mode}"
+        plan(g, spec["off"]).solve()  # warm-up
+        off = count_syncs_split(plan(g, spec["off"]).solve)
+        obs.reset()
+        traced = count_syncs_split(plan(g, spec["trace"]).solve)
+        events = obs.trace_events()
+        (solve,) = [e[4] for e in events if e[0] == solve_span]
+        rounds = sorted((e for e in events if e[0] == "msf.round"), key=lambda e: e[1])
+        # the spans' own: each synced span's explicit sync, each msf.counts read
+        check(off[1] == 0 and solve["host_syncs"] == off[0] == traced[0] - len(rounds),
+              f"obs: {cell}: host_syncs {solve['host_syncs']}, count_syncs_split off {off}, "
+              f"trace {traced}, {len(rounds)} rounds")
+        table = []
+        for rnd in rounds:
+            inside = {e[0]: e for e in events
+                      if e[0] in obs.PORT_ONLY_SPANS and e[3] == rnd[3]
+                      and rnd[1] <= e[1] and e[1] + e[2] <= rnd[1] + rnd[2]}
+            counts = inside["msf.counts"][4]
+            table.append({"round": rnd[4]["round"], "msf.round_ms": rnd[2] / 1e6,
+                          **{f"{k}_ms": inside[k][2] / 1e6 for k in obs.PORT_ONLY_SPANS
+                             if k in inside},
+                          "outgoing_share": counts["outgoing"] / counts["edges"]})
+        obs.reset()
+        times = {"off": [], "trace": []}
+        for i in range(reps):
+            for m in (("off", "trace") if i % 2 == 0 else ("trace", "off")):
+                clear_plan_cache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan(g, spec[m]).solve()
+                times[m].append(time.perf_counter() - t0)
+                obs.reset()
+        mean = {m: statistics.fmean(v) for m, v in times.items()}
+        rows[cell] = {
+            "host_syncs_tally": solve["host_syncs"], "host_syncs_by_site": solve["host_syncs_by_site"],
+            "count_syncs_off": sum(off), "count_syncs_trace": sum(traced),
+            "trace_explicit_syncs": traced[1], "rounds": len(rounds),
+            "rounds_table": table, "solve_s": times,
+            "trace_cost": mean["trace"] / mean["off"] - 1,
+        }
+        print(json.dumps({"obs_bench_cell": cell, **rows[cell]}), flush=True)
+        del g
+    obs.reset()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4353,6 +4449,12 @@ def count_syncs(fn) -> int:
     debug mode reports (copies to the host, ``.item()``, ``nonzero``...)
     plus the explicit ``torch.cuda.synchronize`` calls, which it does not
     report (an obs span's sync in trace mode)."""
+    return sum(count_syncs_split(fn))
+
+
+def count_syncs_split(fn) -> tuple[int, int]:
+    """(synchronisations torch's sync debug mode reports, explicit
+    ``torch.cuda.synchronize`` calls) during ``fn()``."""
     import warnings
 
     import torch
@@ -4375,7 +4477,7 @@ def count_syncs(fn) -> int:
     finally:
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize = sync
-    return explicit + sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message) for w in caught), explicit
 
 
 def profile_solve(g, spec=None, top: int = 8) -> dict:
@@ -4391,6 +4493,34 @@ def profile_solve(g, spec=None, top: int = 8) -> dict:
         "top": [{"op": e.key[:70], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
                 for e in rows[:top]],
     }
+
+
+def obs_phase(g_rmat, g_grid, smi) -> None:
+    phase("6h obs on the card")
+    t0 = time.perf_counter()
+    obs_row = obs_path(g_rmat, g_grid)
+    obs_row["bench_cells"] = bench_cells_obs()
+    print(json.dumps({"obs_on_the_card": obs_row, "card": smi}))
+    print(f"  phase 6h took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def obs_only() -> None:
+    """``python chip_smoke.py --phase 6h``: the build and phase 6h alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    from repro_torch.graphs import grid_road_graph, rmat_graph
+    from repro_torch.kernels import build
+
+    phase("1 device")
+    smi = smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
+    phase("2 build")
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    build.build_all()
+    obs_phase(rmat_graph(**RMAT, device="cuda"), grid_road_graph(*GRID, device="cuda"), smi)
+    print(json.dumps({"ok": True, "phases": ["6h"]}))
 
 
 def main():
@@ -4480,11 +4610,7 @@ def main():
     print(json.dumps({"serve_rmat_s20_ef8": serve_row, "card": smi}))
     print(f"  phase 6g took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    phase("6h obs on the card")
-    t0 = time.perf_counter()
-    obs_row = obs_path(g_rmat, g_grid)
-    print(json.dumps({"obs_on_the_card": obs_row, "card": smi}))
-    print(f"  phase 6h took {time.perf_counter() - t0:.1f} s", flush=True)
+    obs_phase(g_rmat, g_grid, smi)
 
     phase("6i plan cost (the tuner and the load harness run after phase 7)")
     t0 = time.perf_counter()
@@ -4716,4 +4842,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--phase", "6h"]:
+        obs_only()
+    else:
+        main()

@@ -1,0 +1,10 @@
+"""host_syncs.coarsen (syncs, program counter): mean ``host_syncs`` of the
+``solve.coarsen`` spans: the program's own tally of the points at which a
+coarsen solve's host waits for the card (``obs.host_sync``), without the
+trace spans' syncs."""
+from msfbench.readers import mean
+from msfbench.solvespans import attr_values
+
+
+def read(r):
+    return mean(attr_values(r.spans, "solve.coarsen", "host_syncs"))

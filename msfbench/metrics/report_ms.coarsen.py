@@ -1,0 +1,9 @@
+"""report_ms.coarsen (ms, program span): mean length of the
+``solve.report`` spans of coarsen solves (``solve/engines.py``: the
+report's copies of the forest's edge ids and the labels to pageable host
+memory, and its scalar reads), in trace mode."""
+from msfbench.readers import mean, span_durations_ms
+
+
+def read(r):
+    return mean(span_durations_ms(r.spans, "solve.report"))

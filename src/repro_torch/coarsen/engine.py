@@ -54,7 +54,7 @@ from repro_torch.coarsen.relabel import canonical_minvertex_labels, rank_relabel
 from repro_torch.core.msf import MSFResult, flat_msf
 from repro_torch.graphs.partition import Partition2D, partition_edges_2d
 from repro_torch.graphs.structures import IMAX, Graph
-from repro_torch.obs.trace import trace_span
+from repro_torch.obs.trace import host_sync, trace_span
 
 
 def next_pow2(k: int, floor: int = 16) -> int:
@@ -106,12 +106,14 @@ def _eid_capacity(eid: torch.Tensor, m0: int) -> int:
     eid → position hook-payload table of ``contract_level_und``."""
     if m0 == 0:
         return 8
+    host_sync("coarsen.eid_capacity")
     return _next_pow2(int(eid[:m0].max()) + 1)
 
 
 def _canonical(graph: Graph):
     """The undirected (lo < hi) edge set, pow2-padded, on the graph's
     device: the reference's ``_canonical_host`` without the host copy."""
+    host_sync("coarsen.canonical")
     idx = (graph.valid & (graph.src < graph.dst)).nonzero().squeeze(1)
     m0 = int(idx.numel())
     pad = _next_pow2(m0)
@@ -255,9 +257,11 @@ def _run_levels_fused(graph: Graph, cfg: CoarsenConfig, segmins) -> CoarsenPrelu
                 segmin=be.hook, segmin_dedupe=be.dedupe_segmin,
                 dedupe_host=be.dedupe == "host",
             ))
+        host_sync("coarsen.level_scalars")
         n_next = int(res.n_next) - (n_pad - n_cur)  # drop padding roots
         if n_next == n_cur:  # every component already complete
             break
+        host_sync("coarsen.level_scalars", 3)
         n_f = int(res.n_msf_edges)
         eids_acc.append(res.msf_eids[:n_f])
         weight += float(res.weight)
@@ -303,9 +307,11 @@ def run_levels(graph: Graph, config: CoarsenConfig | None = None, *,
                 n=n_pad, eid_capacity=eid_cap, rounds=cfg.rounds_per_level,
                 pack=be.pack, segmin=be.hook,
             )
+            host_sync("coarsen.level_scalars")
             n_next = int(res.n_next) - (n_pad - n_cur)  # drop padding roots
             if n_next == n_cur:  # every component already complete
                 break
+            host_sync("coarsen.level_scalars", 2)
             n_f = int(res.n_msf_edges)
             eids_acc.append(res.msf_eids[:n_f])
             weight += float(res.weight)
@@ -322,6 +328,7 @@ def run_levels(graph: Graph, config: CoarsenConfig | None = None, *,
                     fr = fsp.attach(filter_level(lo, hi, w, eid, valid, res.new_ids,
                                                  n=n_pad, pack=be.pack,
                                                  segmin=be.dedupe_segmin))
+                    host_sync("coarsen.level_scalars")
                     m_next = int(fr.m_new)
                     pad = _next_pow2(m_next)
                     lo, hi, w, eid = fr.lo[:pad], fr.hi[:pad], fr.w[:pad], fr.eid[:pad]
@@ -347,6 +354,7 @@ def _finalize(prelude: CoarsenPrelude, residual_parent: torch.Tensor,
     comp = residual_parent[prelude.label_map.long()]  # [n0] residual-space labels
 
     def _t(x, dtype):
+        host_sync("coarsen.finalize")  # a synchronous copy to the device
         return torch.tensor(x, dtype=dtype, device=dev)
 
     return MSFResult(
@@ -386,6 +394,7 @@ class CoarsenMSF:
             r = sp.attach(flat_msf(prelude.residual, **self.msf_kw))
         self.last_stats = prelude.stats
         self.last_backends = prelude.backends
+        host_sync("coarsen.residual_scalars", 3)
         return _finalize(
             prelude,
             r.parent,

@@ -42,6 +42,7 @@ from repro_torch.core.semiring import (
     unpack32,
 )
 from repro_torch.graphs.structures import canonical_edges, edge_keys, host_array
+from repro_torch.obs.trace import host_sync
 
 #: largest vertex count for the 32-bit pair-key sort path
 PAIR_PACK_LIMIT = 1 << 16
@@ -72,9 +73,11 @@ def _empty_result(w: torch.Tensor) -> FilterResult:
 def front_packed(a, size: int, fill, device) -> torch.Tensor:
     """``a`` (array or tensor) in the front of a [size] tensor on
     ``device``, the rest ``fill``."""
-    a = torch.as_tensor(a, device=device)
-    out = torch.full((size,), fill, dtype=a.dtype, device=device)
-    out[: a.shape[0]] = a
+    t = torch.as_tensor(a, device=device)
+    if t is not a:  # a copy from the host
+        host_sync("filter_host.to_device")
+    out = torch.full((size,), fill, dtype=t.dtype, device=device)
+    out[: t.shape[0]] = t
     return out
 
 
@@ -187,6 +190,7 @@ def filter_level_callback(und_lo, und_hi, w, eid, valid, new_ids, *, n: int) -> 
     l2, h2, w2, e2 = filter_level_host(und_lo, und_hi, w, eid, valid, new_ids, n)
     m = len(l2)
     dev = und_lo.device
+    host_sync("filter_host.to_device")  # m_new's copy; front_packed counts its own
     return FilterResult(
         lo=front_packed(l2, e, 0, dev), hi=front_packed(h2, e, 0, dev),
         w=front_packed(w2, e, INF, dev).to(w.dtype), eid=front_packed(e2, e, IMAX, dev),
@@ -199,6 +203,7 @@ def filter_level_host(lo, hi, w, eid, valid, new_ids, n: int):
     """Host (numpy) twin of :func:`filter_level`: the same policy, returns
     compact unpadded numpy arrays (lo, hi, w, eid). Takes numpy arrays or
     tensors on any device."""
+    host_sync("filter_host.to_host", 6)
     new_ids = host_array(new_ids)
     ns, nd = new_ids[host_array(lo)], new_ids[host_array(hi)]
     l, h, keep = canonical_edges(ns, nd)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs.trace import host_sync
+
 
 def rank_relabel(p: torch.Tensor):
     """Star-canonical parent vector → (new_ids, n_next).
@@ -57,5 +59,6 @@ def canonical_minvertex_labels(comp, comp_space: int) -> torch.Tensor:
     first = torch.ones_like(comp_s, dtype=torch.bool)
     first[1:] = comp_s[1:] != comp_s[:-1]
     reps = torch.full((comp_space,), n0, dtype=torch.int64, device=comp.device)
+    host_sync("labels.mask", 2)
     reps[comp_s[first]] = order[first]
     return reps[comp].to(torch.int32)

@@ -15,8 +15,13 @@ The JAX driver's ``lax.while_loop`` is a host loop here: one round per
 step, stopping when a round changes no parent (FastSV's convergence
 test, paper §V) or at the unroll guard; the stop test is one ``.item()``.
 In obs trace mode the same loop runs under an ``msf.flat`` span with one
-device-synced ``msf.round`` span per round (the reference's traced
-driver); otherwise it adds no span and no sync.
+device-synced ``msf.round`` span per round (as the reference's traced
+loop records), and inside each round the port's own device-synced phase spans
+``msf.min_outgoing``, ``msf.hook`` and ``msf.shortcut``, with the
+trace-only count of the round's outgoing edges under an ``msf.counts``
+span of its own between the first two, so that no phase span times it;
+otherwise it adds no span and no sync. Each host wait counts in
+``obs.host_sync``'s tally.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.obs.trace import trace_span
+from repro_torch.obs.trace import host_sync, trace_active, trace_span
 from repro_torch.core import shortcut as sc
 from repro_torch.core.multilinear import (
     min_outgoing_coo,
@@ -50,6 +55,7 @@ def starcheck(p: torch.Tensor) -> torch.Tensor:
     nonstar = gp != p
     # Vertex i informs its grandparent the tree is not a star. Only the
     # non-star vertices write (the reference drops the rest out of bounds).
+    host_sync("starcheck.mask")
     s[gp[nonstar].long()] = False
     s = s & ~nonstar
     # Remaining vertices query their parent.
@@ -74,21 +80,43 @@ def record_edges(msf_eids, n_f, keep, r_eid):
     the driver owns the buffer, so no [n] copy per round)."""
     pos = n_f + torch.cumsum(keep, 0, dtype=torch.int32) - 1
     # Only the winners write (the reference drops the rest out of bounds).
+    host_sync("record_edges.nonzero")
     win = keep.nonzero().squeeze(1)  # one host sync for the winners' count
     msf_eids[pos[win].long()] = r_eid[win]
     return msf_eids, n_f + keep.sum(dtype=torch.int32)
 
 
+def count_true(mask: torch.Tensor) -> torch.Tensor:
+    """0-d int64 count of a contiguous bool tensor's True entries. Eight
+    bytes (each 0 or 1) are summed per int64 word by one multiply, whose top
+    byte holds their sum. ``mask.sum()`` first casts the whole mask to an
+    int64 copy, eight bytes an entry; ``view`` raises for a mask it cannot
+    reinterpret as words."""
+    k = mask.numel() // 8 * 8
+    words = mask[:k].view(torch.int64)
+    return ((words * 0x0101010101010101) >> 56).sum() + mask[k:].sum()
+
+
 def _make_msf_body(graph: Graph, variant, shortcut_fn, pack, segmin):
     """One hook+shortcut round as ``body(state) -> state`` over the
-    6-tuple ``(p, total, msf_eids, n_f, it, done)``."""
+    6-tuple ``(p, total, msf_eids, n_f, it, done)``. In trace mode its
+    phases are the spans ``msf.min_outgoing``, ``msf.hook`` and
+    ``msf.shortcut`` (no-ops otherwise), and ``msf.counts`` carries the
+    round's ``edges`` (scanned) and ``outgoing`` (joining two components)."""
     n = graph.n
     src, dst, w, eid, valid = graph.src, graph.dst, graph.w, graph.eid, graph.valid
+    n_edges = int(src.shape[0])
 
-    def body_complete(state):
-        p, total, msf_eids, n_f, it, _ = state
-        p_prev = p
-        if variant == "pairwise":
+    def min_outgoing(p):
+        """(per-root minimum outgoing edge, bool [E] mask of the edges that
+        took part, or None outside trace mode)."""
+        tracing = trace_active()
+        if variant == "paper":
+            s = starcheck(p)
+            q, outgoing = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="vertex",
+                                           star=s, return_outgoing=True)
+            r = project_to_roots(q, p, n)
+        elif variant == "pairwise":
             # Paper §IV-A pairwise baseline: materialize m = (a_ij, p_j)
             # into nnz-sized buffers (the extra writes), then reduce with
             # f(p_i, m_ij). Algebraically identical to the fused kernel.
@@ -99,30 +127,37 @@ def _make_msf_body(graph: Graph, variant, shortcut_fn, pack, segmin):
             outgoing = (ps != m_pd) & valid
             r = segment_argmin(m_w, m_eid, (m_pd,), ps, n, valid=outgoing)
         elif pack:
-            r = min_outgoing_coo_packed(p, src, dst, w, eid, valid, n, segmin=segmin)
+            r, outgoing = min_outgoing_coo_packed(p, src, dst, w, eid, valid, n,
+                                                  segmin=segmin, return_outgoing=True)
         else:
-            r = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="root")
-        p_h, keep, _ = hook_and_tiebreak(p, r.w, r.eid, r.payload[0])
-        total = total + torch.where(keep, r.w, 0.0).sum()
-        msf_eids, n_f = record_edges(msf_eids, n_f, keep, r.eid)
-        p_next = shortcut_fn(p_h, p_prev)
-        done = torch.equal(p_next, p_prev)
-        return p_next, total, msf_eids, n_f, it + 1, done
+            r, outgoing = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="root",
+                                           return_outgoing=True)
+        return r, (outgoing if tracing else None)
 
-    def body_paper(state):
+    def body(state):
         p, total, msf_eids, n_f, it, _ = state
         p_prev = p
-        s = starcheck(p)
-        q = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="vertex", star=s)
-        r = project_to_roots(q, p, n)
-        p_h, keep, _ = hook_and_tiebreak(p, r.w, r.eid, r.payload[0])
-        total = total + torch.where(keep, r.w, 0.0).sum()
-        msf_eids, n_f = record_edges(msf_eids, n_f, keep, r.eid)
-        p_next = sc.shortcut_once(p_h, starcheck(p_h))
+        with trace_span("msf.min_outgoing") as sp:
+            r, outgoing = min_outgoing(p)
+            sp.attach(r)
+        if outgoing is not None:
+            with trace_span("msf.counts", edges=n_edges) as sp:
+                sp.set(outgoing=int(count_true(outgoing)))
+            del outgoing
+        with trace_span("msf.hook") as sp:
+            p_h, keep, _ = hook_and_tiebreak(p, r.w, r.eid, r.payload[0])
+            total = total + torch.where(keep, r.w, 0.0).sum()
+            msf_eids, n_f = sp.attach(record_edges(msf_eids, n_f, keep, r.eid))
+        with trace_span("msf.shortcut") as sp:
+            if variant == "paper":
+                p_next = sp.attach(sc.shortcut_once(p_h, starcheck(p_h)))
+            else:
+                p_next = sp.attach(shortcut_fn(p_h, p_prev))
+        host_sync("msf.done")
         done = torch.equal(p_next, p_prev)
         return p_next, total, msf_eids, n_f, it + 1, done
 
-    return body_paper if variant == "paper" else body_complete
+    return body
 
 
 def _msf_init(graph: Graph, parent0):
@@ -176,6 +211,7 @@ def run_flat(
         # canonical labels (complete variant: no-op)
         p = sp.attach(sc.complete_shortcut(p))
         sp.set(iterations=it)
+    host_sync("msf.iterations")  # a synchronous copy to the device
     return MSFResult(
         weight=total, parent=p, msf_eids=msf_eids, n_msf_edges=n_f,
         iterations=torch.tensor(it, dtype=torch.int32, device=graph.device),

@@ -31,6 +31,7 @@ from repro_torch.core.semiring import (
     segment_min,
     unpack32,
 )
+from repro_torch.obs.trace import host_sync
 
 
 def min_outgoing_coo(
@@ -44,12 +45,14 @@ def min_outgoing_coo(
     *,
     segment: str = "root",
     star: torch.Tensor | None = None,
-) -> EdgeMin:
+    return_outgoing: bool = False,
+):
     """All-at-once kernel for Algorithm 1 line 9(+10), reduced by ``segment``:
     "root" (segment ids = p[src], fuses the line-10 projection; valid when
     every tree is a star) or "vertex" (segment ids = src, the literal line 9).
 
-    Returns EdgeMin over [n] with payload (p_dst,).
+    Returns EdgeMin over [n] with payload (p_dst,); with ``return_outgoing``
+    also the bool [E] mask of the edges that took part.
     """
     ps = p[src]
     pd = p[dst]
@@ -57,7 +60,8 @@ def min_outgoing_coo(
     if star is not None:
         outgoing = outgoing & star[src]
     seg = ps if segment == "root" else src
-    return segment_argmin(w, eid, (pd,), seg, n, valid=outgoing)
+    r = segment_argmin(w, eid, (pd,), seg, n, valid=outgoing)
+    return (r, outgoing) if return_outgoing else r
 
 
 def project_to_roots(q: EdgeMin, p: torch.Tensor, n: int) -> EdgeMin:
@@ -75,13 +79,15 @@ def min_outgoing_coo_packed(
     n: int,
     *,
     segmin=None,
-) -> EdgeMin:
+    return_outgoing: bool = False,
+):
     """pack32 fast path of :func:`min_outgoing_coo` (root-segment form).
 
     Valid for ``w`` integral in [0, 255] and ``eid < 2^24 - 1``. The
     per-round reduction is ONE segment-min on the packed key plus one
     payload pass over the winners; ``segmin(keys, segs, n)`` swaps in the CUDA
     kernel (``kernels.ops.make_packed_segmin``) for the packed one.
+    ``return_outgoing`` as in :func:`min_outgoing_coo`.
     """
     ps = p[src]
     pd = p[dst]
@@ -98,14 +104,16 @@ def min_outgoing_coo_packed(
     # Scatter only the winners (at most one per root). Masking the rest to
     # IMAX, as the reference does, sends every edge of a large component
     # to one root's slot, and on the card those atomics serialise.
+    host_sync("min_outgoing.winners")
     win = (outgoing & (key == minkey[ps])).nonzero().squeeze(1)
     pay = segment_min(pd[win], ps[win], n, IMAX)
     empty = minkey == PACK_IDENTITY
-    return EdgeMin(
+    r = EdgeMin(
         w=torch.where(empty, INF, w_out.to(torch.float32)),
         eid=torch.where(empty, IMAX, eid_out),
         payload=(pay,),
     )
+    return (r, outgoing) if return_outgoing else r
 
 
 def min_outgoing_dense(
@@ -253,6 +261,7 @@ def min_outgoing_2d_packed(
     w_out, eid_out = unpack32(minkey)
     # Only the ranks holding a winning edge contribute its p_dst, and each
     # scatters only its winners (see min_outgoing_coo_packed).
+    host_sync("min_outgoing.winners")
     win = (outgoing & (key == minkey[ps])).nonzero().squeeze(1)
     pay = segment_min(pd[win], ps[win], n, IMAX)
     pay = mesh.all_reduce(mesh.all_reduce(pay, "min", col_axis), "min", row_axis)

@@ -19,6 +19,8 @@ from functools import partial
 
 import torch
 
+from repro_torch.obs.trace import host_sync
+
 IMAX = int(torch.iinfo(torch.int32).max)
 
 
@@ -32,6 +34,7 @@ def count_shortcut_subiters(p: torch.Tensor):
     k = 0
     while True:
         pp = p[p]
+        host_sync("shortcut.any")
         if not bool((pp != p).any()):
             return p, k
         p, k = pp, k + 1
@@ -60,6 +63,7 @@ def _compress_changed_map(ids: torch.Tensor, vals: torch.Tensor):
 
     while True:
         nxt, hit = lookup(vals)
+        host_sync("shortcut.compress_any")
         if not bool((hit & real).any()):
             return ids, vals
         vals = nxt
@@ -87,6 +91,7 @@ def csp_shortcut(p: torch.Tensor, p_prev: torch.Tensor, capacity: int) -> torch.
     """Algorithm 2, single-shard semantics. On overflow the buffer dropped
     entries, so fall back to the complete shortcut."""
     ids, vals, _, overflow = build_changed(p, p_prev, capacity)
+    host_sync("shortcut.overflow")
     if bool(overflow.item()):
         return complete_shortcut(p)
     ids, vals = _compress_changed_map(ids, vals)

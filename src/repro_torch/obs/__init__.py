@@ -26,11 +26,14 @@ from repro_torch.obs.metrics import (
 from repro_torch.obs.trace import (
     MODES,
     NOOP_SPAN,
+    PORT_ONLY_SPANS,
+    collect_syncs,
     collect_timings,
     disable,
     enable,
     enabled,
     export_trace,
+    host_sync,
     metrics_active,
     mode,
     reset,
@@ -39,6 +42,9 @@ from repro_torch.obs.trace import (
     trace_active,
     trace_events,
 )
+
+# The port's own surface (PORT_ONLY_SPANS, host_sync, collect_syncs) stays
+# out of __all__, which lists what the reference's obs exports.
 
 __all__ = [
     # tracing

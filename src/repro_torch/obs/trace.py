@@ -23,7 +23,10 @@ Three modes, escalating cost:
   complete event (``ph: "X"`` with microsecond ``ts``/``dur``) in a
   bounded in-process buffer, exported by :func:`export_trace`. Nesting
   falls out of timestamps: Perfetto stacks same-thread spans whose
-  intervals contain each other.
+  intervals contain each other. While torch's profiler is collecting,
+  each span also opens a ``record_function`` range of its name, closed
+  after its sync, so the spans nest in the profiler's own timeline and
+  its idle time can be laid at a span's door.
 
 Device-sync timing: CUDA launches are asynchronous, so a span around
 them measures the enqueue, not the execution. ``sp.attach(value)`` marks
@@ -34,6 +37,12 @@ exported duration then covers the device work, at the cost of the sync
 point the profiler itself introduces. CPU tensors and numpy values need
 no sync. Spans are thread-safe (per-thread ids in the export; the
 buffer appends under a lock).
+
+Host waits: :func:`host_sync` counts, by site, each point at which the
+host blocks on the device (a read of a device value, a shape that depends
+on device data, a synchronous copy), inside :func:`collect_syncs`, in
+trace mode only. The spans' own syncs are not among them, so the tally
+is what an untraced solve waits.
 """
 from __future__ import annotations
 
@@ -59,7 +68,13 @@ _enabled: bool = False  # _mode != "off" — the single hot-path branch
 _sync: bool = True
 _events: list = []  # (name, t0_ns, dur_ns, tid, attrs | None)
 _dropped: int = 0
-_tls = threading.local()  # .collectors: list[dict] of active aggregators
+_tls = threading.local()  # .collectors / .syncs: list[dict] of active aggregators
+
+#: Spans the port records in trace mode and the reference does not: the
+#: phases of an AS round and its outgoing-edge count (``core/msf.py``), and
+#: the report's host copies (``solve/engines.py``).
+PORT_ONLY_SPANS = ("msf.min_outgoing", "msf.counts", "msf.hook", "msf.shortcut",
+                   "solve.report")
 
 
 def _check_mode(mode: str) -> str:
@@ -153,14 +168,18 @@ NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "_t0", "_pending")
+    __slots__ = ("name", "attrs", "_t0", "_pending", "_range")
 
     def __init__(self, name: str, attrs: dict | None):
         self.name = name
         self.attrs = attrs
         self._pending = None
+        self._range = None
 
     def __enter__(self):
+        if _mode == "trace" and torch.autograd.profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -183,6 +202,8 @@ class _Span:
             for dev in _cuda_devices(self._pending, set()):
                 torch.cuda.synchronize(dev)
         t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         _record(self.name, self._t0, t1 - self._t0, self.attrs)
         return False
 
@@ -236,6 +257,33 @@ def _record(name: str, t0_ns: int, dur_ns: int, attrs) -> None:
                 )
             else:
                 _dropped += 1
+
+
+def host_sync(site: str, n: int = 1) -> None:
+    """Count ``n`` host waits at ``site`` in every active
+    :func:`collect_syncs` tally. Trace mode only: otherwise one branch."""
+    if _mode != "trace":
+        return
+    for d in getattr(_tls, "syncs", ()):
+        d[site] = d.get(site, 0) + n
+
+
+@contextmanager
+def collect_syncs():
+    """Tally same-thread :func:`host_sync` calls by site for the duration.
+
+    Yields a dict that fills with ``{site: count}`` in trace mode (empty
+    otherwise), the planner's ``host_syncs`` attributes of a solve span.
+    """
+    d: dict = {}
+    stack = getattr(_tls, "syncs", None)
+    if stack is None:
+        stack = _tls.syncs = []
+    stack.append(d)
+    try:
+        yield d
+    finally:
+        stack.remove(d)
 
 
 @contextmanager

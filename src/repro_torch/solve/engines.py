@@ -11,6 +11,7 @@ import numpy as np
 from repro_torch.coarsen.engine import CoarsenMSF
 from repro_torch.core.msf import run_flat
 from repro_torch.graphs.structures import host_array
+from repro_torch.obs.trace import trace_span
 from repro_torch.solve.planner import register_engine
 from repro_torch.solve.report import SolveReport, report_from_msf_result
 from repro_torch.solve.spec import ResolvedSpec, _stream_n
@@ -33,7 +34,8 @@ class _FlatEngine:
             pack=bool(rs.pack),
             segmin=rs.segmin_flat,
         )
-        return report_from_msf_result("flat", r)
+        with trace_span("solve.report"):  # trace mode: the report's host copies
+            return report_from_msf_result("flat", r)
 
 
 def _build_flat(target, rs: ResolvedSpec, mesh):
@@ -62,7 +64,9 @@ class _CoarsenEngine:
     def solve(self, graph) -> SolveReport:
         r = self._eng(graph)
         st = self._eng.last_stats
-        return report_from_msf_result("coarsen", r, levels=st.levels if st is not None else ())
+        with trace_span("solve.report"):
+            return report_from_msf_result("coarsen", r,
+                                          levels=st.levels if st is not None else ())
 
 
 def _build_coarsen(target, rs: ResolvedSpec, mesh):

@@ -24,7 +24,9 @@ report. Each engine built carries its analytic
 around planning (``plan.resolve`` and ``plan.build`` spans, the
 ``plan.cache.{hit,miss}`` counters) and around every plan call (a
 ``solve.<mode>[.<call>]`` span, and the span totals of the call in
-``SolveReport.timings``), as in the reference.
+``SolveReport.timings``), as in the reference. In trace mode the
+``solve.flat`` and ``solve.coarsen`` spans also carry the solve's host
+waits (``host_syncs``, ``host_syncs_by_site``: ``obs.host_sync``'s tally).
 """
 from __future__ import annotations
 
@@ -43,6 +45,9 @@ from repro_torch.solve.report import SolveReport
 from repro_torch.solve.spec import MODES, ResolvedSpec, SolveSpec
 
 PLAN_CACHE_MAXSIZE = 64
+#: solve spans whose every host wait counts in obs.host_sync's tally: in
+#: trace mode they carry ``host_syncs`` and ``host_syncs_by_site``
+_TALLIED = ("solve.flat", "solve.coarsen")
 
 _lock = threading.Lock()
 _cache: "OrderedDict[Any, Any]" = OrderedDict()  # key -> engine (LRU)
@@ -247,8 +252,13 @@ class Plan:
             return self._attach_cost(call())
         name = f"solve.{self.spec.mode}" + (f".{what}" if what else "")
         with obs.enabled(self.spec.obs):
-            with obs.collect_timings() as t, obs.span(name):
-                rep = call()
+            with obs.collect_timings() as t, obs.span(name) as sp:
+                if obs.trace_active() and name in _TALLIED:
+                    with obs.collect_syncs() as syncs:
+                        rep = call()
+                    sp.set(host_syncs=sum(syncs.values()), host_syncs_by_site=dict(syncs))
+                else:
+                    rep = call()
             if t and isinstance(rep, SolveReport):
                 rep = rep._replace(timings=dict(t))
         return self._attach_cost(rep)

@@ -11,6 +11,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 
 from repro_torch.graphs.structures import host_array
+from repro_torch.obs.trace import host_sync
 
 
 class SolveReport(NamedTuple):
@@ -62,6 +63,8 @@ def report_from_msf_result(
     recompiles: int = 0,
 ) -> SolveReport:
     """Adapt an ``MSFResult``-shaped record."""
+    host_sync("report.scalars", 4)  # weight, n_msf_edges twice, iterations
+    host_sync("report.arrays", 2)  # msf_eids, parent
     return SolveReport(
         mode=mode,
         weight=float(r.weight),
@@ -74,3 +77,4 @@ def report_from_msf_result(
         recompiles=int(recompiles),
         raw=r,
     )
+

@@ -32,6 +32,7 @@ from repro_torch.coarsen.config import (
     CoarsenConfig,
 )
 from repro_torch.core.semiring import PACK_IDX_MASK
+from repro_torch.obs.trace import host_sync
 
 MODES = ("flat", "coarsen", "dist", "stream")
 OBS_MODES = ("off", "metrics", "trace")
@@ -53,6 +54,7 @@ def weights_packable(w) -> bool:
     if w.numel() == 0:
         return True
     ok = torch.all(w == torch.floor(w)) & (w.min() >= 0) & (w.max() <= 255)
+    host_sync("auto_pack.weights")
     return bool(ok)
 
 
@@ -62,11 +64,14 @@ def auto_pack(w, eid, valid, e_capacity: int) -> bool:
     if e_capacity >= PACK_IDX_MASK:
         return False
     valid = torch.as_tensor(valid).to(torch.bool)
+    host_sync("auto_pack.mask")
     wv = torch.as_tensor(w)[valid]
     if wv.numel() == 0:
         return True
     if not weights_packable(wv):
         return False
+    host_sync("auto_pack.mask")
+    host_sync("auto_pack.eid_max")
     return int(torch.as_tensor(eid)[valid].max()) < PACK_IDX_MASK
 
 

@@ -34,6 +34,10 @@ from repro_torch.stream.service import QueryService as TQueryService  # noqa: E4
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGES = {"reference": jobs, "port": tobs}
 MODES = ("off", "metrics", "trace")
+PORT_ONLY = frozenset(tobs.PORT_ONLY_SPANS)
+#: the port-only spans of one AS round, in order: the phases, and the
+#: trace-only outgoing count between the first two
+ROUND_SPANS = ("msf.min_outgoing", "msf.counts", "msf.hook", "msf.shortcut")
 
 
 def _clean():
@@ -237,8 +241,29 @@ def _solve_both(jg, spec_kw, mode, *, coarsen=None):
     return jr, tr
 
 
+def _split_names(tnames):
+    """The port's span-name multiset split into the names the reference
+    also records and the port-only ones."""
+    shared = collections.Counter({k: v for k, v in tnames.items() if k not in PORT_ONLY})
+    own = collections.Counter({k: v for k, v in tnames.items() if k in PORT_ONLY})
+    return shared, own
+
+
+def _assert_port_only_counts(tnames, mode, *, reports=1):
+    """Off and metrics: no port-only span. Trace: the three phase spans and
+    the count span once per ``msf.round`` and one ``solve.report`` per solve."""
+    _, own = _split_names(tnames)
+    if mode != "trace":
+        assert not own
+        return
+    rounds = tnames["msf.round"]
+    assert own == collections.Counter({**{ph: rounds for ph in ROUND_SPANS},
+                                       "solve.report": reports}), own
+
+
 def _assert_same_timings_keys(jrep, trep, mode):
-    assert set(trep.timings) == set(jrep.timings)
+    assert set(trep.timings) - PORT_ONLY == set(jrep.timings)
+    assert set(trep.timings) & PORT_ONLY == (PORT_ONLY if mode == "trace" else set())
     assert bool(trep.timings) == (mode != "off")
 
 
@@ -250,7 +275,8 @@ def test_flat_parity_across_modes(mode):
     (_, _, _), (base, _, _) = _solve_both(jg, {}, "off")
     assert_same_msf(base, trep)  # obs changes no output bit
     _assert_same_timings_keys(jrep, trep, mode)
-    assert tnames == jnames
+    assert _split_names(tnames)[0] == jnames
+    _assert_port_only_counts(tnames, mode)
     assert tcnt == jcnt
     if mode == "trace":
         assert tnames["msf.round"] == int(trep.iterations) and tnames["msf.flat"] == 1
@@ -270,7 +296,8 @@ def test_coarsen_parity_across_modes(mode, fused):
     assert_same_msf(base, trep)
     assert tuple(map(tuple, trep.levels)) == tuple(map(tuple, base.levels))
     _assert_same_timings_keys(jrep, trep, mode)
-    assert tnames == jnames
+    assert _split_names(tnames)[0] == jnames
+    _assert_port_only_counts(tnames, mode)
     assert tcnt == jcnt
     if mode == "trace":
         assert {"coarsen.levels", "coarsen.level", "coarsen.contract", "coarsen.relabel",
@@ -287,7 +314,8 @@ def _stream_trace_ops(seed):
 def test_stream_parity_across_modes(mode):
     """One op trace through both packages' stream plans: identical
     reports per op, and with the reservoir kept small, the reservoir
-    counters equal over the trace; the same spans."""
+    counters equal over the trace; the same spans, and the port's own
+    phase spans once per AS round."""
     ops = _stream_trace_ops(5)
     kw = dict(mode="stream", batch_capacity=32, reservoir_capacity=16,
               reservoir_per_component=4)
@@ -309,10 +337,11 @@ def test_stream_parity_across_modes(mode):
     from _torch_util import assert_same_stream_report
 
     for a, b in zip(jreps[:-1], treps[:-1]):
-        assert set(b.timings) == set(a.timings)
+        assert set(b.timings) - PORT_ONLY == set(a.timings)
         assert_same_stream_report(a._replace(timings={}), b._replace(timings={}))
     np.testing.assert_array_equal(treps[-1], np.asarray(jreps[-1]))
-    assert tnames == jnames
+    assert _split_names(tnames)[0] == jnames
+    _assert_port_only_counts(tnames, mode, reports=0)
     assert tcnt == jcnt
     if mode != "off":
         counted = {k for k in tcnt if k.startswith("stream.reservoir.")}
@@ -401,3 +430,256 @@ def test_exported_solve_trace_passes_check_trace(tmp_path):
     proc = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"), str(path),
                            *names], capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the port's own instruments: phase spans, the host-wait tally, the report
+# span, and the spans' profiler ranges
+# ---------------------------------------------------------------------------
+
+
+def test_port_only_span_names_are_one_constant():
+    """What a traced flat and coarsen solve record beyond the reference's
+    names is exactly ``obs.PORT_ONLY_SPANS``, kept out of ``__all__``."""
+    assert tobs.PORT_ONLY_SPANS is ttrace.PORT_ONLY_SPANS
+    assert not set(tobs.PORT_ONLY_SPANS) & set(tobs.__all__)
+    jg = random_graph(256, 1024, seed=7)
+    for kw in ({}, dict(mode="coarsen")):
+        (_, jnames, _), (_, tnames, _) = _solve_both(jg, kw, "trace",
+                                                     coarsen=dict(cutoff=32) if kw else None)
+        assert set(tnames) - set(jnames) == PORT_ONLY
+
+
+def _traced_flat(g, **spec):
+    tobs.reset()
+    tsolve.clear_plan_cache()
+    rep = tsolve.plan(g, tsolve.SolveSpec(obs="trace", **spec)).solve()
+    return rep, tobs.trace_events()
+
+
+def _inside(ev, outer):
+    return outer[1] <= ev[1] and ev[1] + ev[2] <= outer[1] + outer[2] and ev[3] == outer[3]
+
+
+FLAT_SPECS = {
+    "complete": dict(),
+    "complete-unpacked": dict(pack=False),
+    "csp": dict(shortcut="csp"),
+    "paper": dict(variant="paper"),
+    "pairwise": dict(variant="pairwise"),
+}
+
+
+@pytest.mark.parametrize("spec", sorted(FLAT_SPECS))
+def test_phase_spans_nest_in_their_round(spec):
+    """Each AS round holds one msf.min_outgoing, msf.counts, msf.hook and
+    msf.shortcut span, in that order, inside its msf.round span."""
+    rep, events = _traced_flat(cpu_graph(random_graph(256, 1024, seed=7)), **FLAT_SPECS[spec])
+    rounds = [e for e in events if e[0] == "msf.round"]
+    assert len(rounds) == rep.iterations > 1
+    phases = [e for e in events if e[0] in ROUND_SPANS]
+    assert len(phases) == 4 * len(rounds)
+    for rnd in rounds:
+        inside = sorted((e for e in phases if _inside(e, rnd)), key=lambda e: e[1])
+        assert [e[0] for e in inside] == list(ROUND_SPANS), rnd[4]
+    report = [e for e in events if e[0] == "solve.report"]
+    solve = next(e for e in events if e[0] == "solve.flat")
+    assert len(report) == 1 and _inside(report[0], solve)
+    assert report[0][4] is None
+
+
+@pytest.mark.parametrize("spec", ["complete", "complete-unpacked", "pairwise"])
+def test_outgoing_counts_match_a_recount(spec):
+    """msf.counts' ``edges`` and ``outgoing`` against a plain recount over
+    the parent vector at the top of each round."""
+    from repro_torch.core.msf import run_flat
+
+    g = cpu_graph(random_graph(256, 1024, seed=7))
+    _, events = _traced_flat(g, **FLAT_SPECS[spec])
+    rounds = sorted((e for e in events if e[0] == "msf.round"), key=lambda e: e[1])
+    mins = sorted((e for e in events if e[0] == "msf.counts"), key=lambda e: e[1])
+    variant = FLAT_SPECS[spec].get("variant", "complete")
+    for rnd, ev in zip(rounds, mins):
+        k = rnd[4]["round"]
+        p = run_flat(g, variant=variant, max_iters=k).parent.long()
+        attrs = ev[4]
+        assert attrs["edges"] == g.src.numel()
+        assert attrs["outgoing"] == int(((p[g.src.long()] != p[g.dst.long()]) & g.valid).sum())
+        assert 0 <= attrs["outgoing"] <= attrs["edges"]
+    assert len(mins) == len(rounds) and mins[-1][4]["outgoing"] == 0
+
+
+def _solve_span(events, name):
+    (ev,) = [e for e in events if e[0] == name]
+    return ev[4]
+
+
+@pytest.mark.parametrize("pack", [True, False])
+def test_host_sync_tally_of_a_flat_solve(pack):
+    """host_syncs is the sum of host_syncs_by_site, and each site is what a
+    replay of the rounds counts: per round 1 nonzero (2 packed) + (jumps + 1)
+    .any() + 1 torch.equal; then the final shortcut's .any(), the
+    iterations copy and the report's 6 reads."""
+    from repro_torch.core import shortcut as sc
+    from repro_torch.core.msf import hook_and_tiebreak, run_flat
+    from repro_torch.core.multilinear import min_outgoing_coo
+
+    g = cpu_graph(random_graph(256, 1024, seed=7))
+    rep, events = _traced_flat(g, pack=pack)
+    attrs = _solve_span(events, "solve.flat")
+    by_site = attrs["host_syncs_by_site"]
+    assert attrs["host_syncs"] == sum(by_site.values())
+    rounds = rep.iterations
+    anys = 1  # the final complete_shortcut of a star forest
+    for k in range(rounds):
+        p = run_flat(g, max_iters=k).parent
+        r = min_outgoing_coo(p, g.src, g.dst, g.w, g.eid, g.valid, g.n)
+        anys += sc.count_shortcut_subiters(hook_and_tiebreak(p, r.w, r.eid, r.payload[0])[0])[1] + 1
+    want = {"record_edges.nonzero": rounds, "shortcut.any": anys, "msf.done": rounds,
+            "msf.iterations": 1, "report.scalars": 4, "report.arrays": 2}
+    if pack:
+        want["min_outgoing.winners"] = rounds
+    assert by_site == want
+    assert attrs["host_syncs"] == rounds * (2 + pack) + anys + 1 + 6
+
+
+def test_host_sync_tally_of_csp_and_paper_rounds():
+    g = cpu_graph(random_graph(256, 1024, seed=7))
+    rep, events = _traced_flat(g, shortcut="csp")
+    by_site = _solve_span(events, "solve.flat")["host_syncs_by_site"]
+    assert by_site["shortcut.overflow"] == rep.iterations == by_site["msf.done"]
+    assert by_site["shortcut.compress_any"] >= rep.iterations
+    rep, events = _traced_flat(g, variant="paper")
+    by_site = _solve_span(events, "solve.flat")["host_syncs_by_site"]
+    assert by_site["starcheck.mask"] == 2 * rep.iterations  # top of round, then of p_h
+    assert "shortcut.any" in by_site  # the canonical labels after the loop
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_host_sync_tally_of_a_coarsen_solve(fused):
+    """The coarsen solve's sites pinned to its levels and rounds: the
+    canonical edge set, K record nonzeros per level, the level loop's
+    scalar reads, the host dedupe's copies (the CPU's default), the
+    residual's rounds and reads, the final labels and the report."""
+    g = cpu_graph(random_graph(512, 2048, seed=11))
+    tobs.reset()
+    tsolve.clear_plan_cache()
+    cfg = TCoarsenConfig(cutoff=32, rounds_per_level=2, fused=fused)
+    rep = tsolve.plan(g, tsolve.SolveSpec(mode="coarsen", obs="trace", coarsen=cfg)).solve()
+    events = tobs.trace_events()
+    attrs = _solve_span(events, "solve.coarsen")
+    by_site = attrs["host_syncs_by_site"]
+    assert attrs["host_syncs"] == sum(by_site.values())
+    levels = len(rep.levels)
+    spans = sum(e[0] == "coarsen.level" for e in events)
+    rounds = sum(e[0] == "msf.round" for e in events)
+    assert levels > 0 and rounds > 0
+    filtered = spans if fused else levels  # the fused level filters even without progress
+    assert by_site["coarsen.canonical"] == by_site["coarsen.eid_capacity"] == 1
+    assert by_site["record_edges.nonzero"] == 2 * spans + rounds
+    assert by_site["msf.done"] == rounds
+    # n_next on every level; then n_msf_edges, weight and (fused) m_new when it progressed
+    assert by_site["coarsen.level_scalars"] == spans + (3 if fused else 2) * levels
+    assert by_site["filter_host.to_host"] == 6 * filtered
+    assert by_site["filter_host.to_device"] == (5 if fused else 4) * filtered
+    assert by_site["coarsen.residual_scalars"] == by_site["coarsen.finalize"] == 3
+    assert by_site["labels.mask"] == 2
+    assert by_site["report.scalars"] == 4 and by_site["report.arrays"] == 2
+
+
+@pytest.mark.parametrize("mode", ["off", "metrics"])
+def test_tally_and_port_spans_only_in_trace_mode(mode):
+    """Off and metrics: host_sync counts nothing, no solve span carries a
+    tally, and no port-only span is recorded."""
+    g = cpu_graph(random_graph(256, 1024, seed=7))
+    tobs.enable(mode)
+    with ttrace.collect_syncs() as syncs:
+        rep = tsolve.plan(g, tsolve.SolveSpec(mode="coarsen",
+                                              coarsen=TCoarsenConfig(cutoff=32))).solve()
+        ttrace.host_sync("anything")
+    assert syncs == {} and tobs.trace_events() == []
+    assert not set(rep.timings) & PORT_ONLY
+
+
+@pytest.mark.parametrize("spec", sorted(FLAT_SPECS))
+def test_trace_only_counts_lie_outside_the_phase_spans(spec):
+    """The outgoing count is the instrument's own work: its msf.counts span
+    starts after msf.min_outgoing ends and ends before msf.hook starts, so
+    no phase span times it."""
+    _, events = _traced_flat(cpu_graph(random_graph(256, 1024, seed=7)), **FLAT_SPECS[spec])
+    spans = sorted((e for e in events if e[0] in ROUND_SPANS), key=lambda e: e[1])
+    for k, ev in enumerate(spans):
+        if ev[0] == "msf.counts":
+            before, after = spans[k - 1], spans[k + 1]
+            assert (before[0], after[0]) == ("msf.min_outgoing", "msf.hook")
+            assert before[1] + before[2] <= ev[1] and ev[1] + ev[2] <= after[1]
+        else:
+            assert ev[4] is None, ev  # the phase spans carry no count
+
+
+def _profiled(fn):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("req"):
+            fn()
+    return list(prof.events())
+
+
+SPAN_NAMES = {"plan.resolve", "solve.flat", "msf.flat", "msf.round", *PORT_ONLY}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_spans_open_profiler_ranges_only_in_trace_mode(mode):
+    """Under torch.profiler, trace mode opens a record_function range per
+    span, nested as the spans are; off and metrics open none."""
+    g = cpu_graph(random_graph(256, 1024, seed=7))
+    tsolve.clear_plan_cache()
+    events = _profiled(lambda: tsolve.plan(g, tsolve.SolveSpec(obs=mode)).solve())
+    ranges = [e for e in events if e.name in SPAN_NAMES]
+    if mode != "trace":
+        assert ranges == []
+        return
+    assert {e.name for e in ranges} == SPAN_NAMES
+    (solve,) = [e for e in ranges if e.name == "solve.flat"]
+    rounds = [e for e in ranges if e.name == "msf.round"]
+    assert len(rounds) == sum(e[0] == "msf.round" for e in tobs.trace_events())
+    for e in ranges:
+        if e.name != "plan.resolve":
+            assert solve.time_range.start <= e.time_range.start
+            assert e.time_range.end <= solve.time_range.end
+
+
+def test_devtrace_labels_an_idle_gap_with_a_program_span():
+    """msfbench's reduction lays host time outside any operation at the
+    door of the innermost program span open on the host."""
+    import time
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        from msfbench import devtrace
+    finally:
+        sys.path.remove(str(ROOT))
+    tobs.enable("trace")
+
+    def work():
+        with tobs.span("probe.outer"):
+            torch.ones(8).sum()
+            with tobs.span("probe.wait"):
+                time.sleep(0.05)
+
+    prof = devtrace.reduce_events(_profiled(work), "req")
+    assert prof.idle_gaps[0][0] == "probe.wait"
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 1001])
+def test_round_statistics_helpers(n):
+    """count_true, the trace-only count of a round's outgoing edges, against
+    plain torch, on a whole mask and on a view that starts mid-word."""
+    from repro_torch.core.msf import count_true
+
+    g = torch.Generator().manual_seed(n)
+    mask = torch.rand(n + 8, generator=g) < 0.4
+    assert int(count_true(mask[:n])) == int(mask[:n].sum())
+    assert int(count_true(mask[8:])) == int(mask[8:].sum())
+    if n > 1:
+        with pytest.raises(RuntimeError):
+            count_true(mask[1:])
