@@ -161,7 +161,7 @@ Phases:
      recsys_retrieval_step at retrieval_cand (1 query, 10^6 candidates,
      top 100, against a full sort): per run the median step ms over 5
      steps after 2, the allocator's peak, the first and last loss
-     (finite) and the card; none of the four kernels launched;
+     (finite) and the card; none of the five kernels launched;
   6l. the LM family (last, after 6k, in a fresh process: after a coarsen
      sweep torch.profiler drops device events, and the full-width models
      want the card's memory): (a) `launch.train.run` on the card for
@@ -188,7 +188,7 @@ Phases:
      layer, batch 1: median step ms over 5 after 2, peak, first and last
      loss (finite). (d) torch.profiler over one qwen2-7b decode step on
      the 32k cache and one layer's 32k prefill: top device operations and
-     the busy share. None of the four kernels launched;
+     the busy share. None of the five kernels launched;
   6m. the mesh-sharded LM (last, after 6l, in a fresh process): each run
      first on one rank (the whole model on the card), then on four gloo
      ranks sharing the card, with the same weights (init_lm, seed 0):
@@ -207,7 +207,7 @@ Phases:
      on 2x2: one float32 lm_train_step at 2 x 4,096 from the same state,
      loss and gnorm within rel 1e-4 of one rank's, then a second step,
      timed; each rank's peak per run, logits equal on every rank, and
-     none of the four kernels launched;
+     none of the five kernels launched;
   6n. the dry run (last, after 6m): (a) `python -m
      repro_torch.launch.dryrun --mesh both` for mixtral-8x7b decode_32k,
      gatedgcn full_graph_sm, xdeepfm train_batch and the MSF rmat_s23_e8
@@ -224,7 +224,18 @@ Phases:
      counted over one real decode step of 6m (a); (d) solve.cost's
      dist_round_terms bound of one 1x1 pack32 round of phase 5's R-MAT s20
      no larger than 6j's measured round, beside 6i's flat predicted/solve;
-     none of the four kernels launched;
+     none of the five kernels launched;
+  6o. the 64-bit min-outgoing kernel of the unpacked flat round (run
+     after 6h; ``python3 chip_smoke.py --phase 6o`` runs the build and this phase
+     alone): on phase 5's graph with its weights + 0.5 and on the
+     g500-s25.solve cell's graph (made as msfbench makes it), the planner
+     declines pack32, a solve launches the kernel once per AS round; on
+     each round's parent vector the kernel equals the segment_argmin route
+     it replaced (weights up to the sign of zero, eids and payloads
+     exactly) and its in-kernel count the mask's; per round the device
+     time of its reduce and payload passes (and the fill and decode)
+     beside the round's bound (17 B an edge, 16 B a vertex), the replaced
+     route's device time and, on R-MAT, the plain twin's; the median solve;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -307,6 +318,9 @@ LOADGEN_ATTEMPTS = 3
 FLAT_RMAT_SYNCS = 40
 # Phase 6h on the benchmark's cells (BENCHMARK.json): solves timed per obs mode.
 BENCH_CELLS = {"g500-s25.solve": 3, "g500-s24.coarsen": 6}
+# Phase 6o: the 64-bit min-outgoing kernel per AS round on phase 5's graph
+# made unpacked (weights + 0.5) and on this cell's own graph.
+FLAT64_CELL = "g500-s25.solve"
 # Phase 6j: the 2x2 grid as four processes on the one card, over gloo.
 DIST_GRID = (2, 2)
 DIST_JOIN_TIMEOUT_S = 300
@@ -388,7 +402,7 @@ LM_CARDS_SERVE = (
 )
 LM_CARDS_TRAIN = ("qwen2-7b", (2, 4_096), 3)
 KERNEL_NAMES = ("segment_min_flat", "segment_min_sorted", "multilinear_dense",
-                "segment_min_bucketed")
+                "segment_min_bucketed", "min_outgoing_flat64")
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
 # dense n x n float32 adjacency (1 GiB and 64 MiB).
 DENSE_GRAPHS = {"rmat_s14_ef8": dict(scale=14, edge_factor=8, seed=1),
@@ -2095,24 +2109,29 @@ def counting_timer(mode: str):
     on the host clock, each checked for its kernel launches (flat: one
     flat launch per AS round under pack32, none on the float path;
     coarsen: flat launches, and a sorted launch per level with the device
-    dedupe, none with the host's)."""
+    dedupe, none with the host's); a flat round without pack32 launches
+    the 64-bit min-outgoing kernel."""
     import torch
+
+    from repro_torch.kernels import ops
 
     def timer(spec, solve_fn):
         samples = []
         for _ in range(3):
             before = read_counts()
+            before64 = ops.min_outgoing_flat64.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rep = solve_fn()
             torch.cuda.synchronize()
             samples.append(time.perf_counter() - t0)
             got = {k: v - before[k] for k, v in read_counts().items()}
+            got64 = ops.min_outgoing_flat64.launches - before64
             if mode == "flat":
                 want = rep.iterations if spec.pack else 0
-                check(got["segment_min_flat"] == want,
-                      f"tune: {got['segment_min_flat']} flat launches for {rep.iterations} "
-                      f"rounds of {spec}")
+                check(got["segment_min_flat"] == want and got64 == rep.iterations - want,
+                      f"tune: {got['segment_min_flat']} flat and {got64} min-outgoing "
+                      f"launches for {rep.iterations} rounds of {spec}")
             else:
                 check(got["segment_min_flat"] > 0, f"tune: no flat launch in {spec}")
                 sorted_ok = (got["segment_min_sorted"] >= len(rep.levels) > 0
@@ -2136,7 +2155,7 @@ def tune_path(graphs: dict) -> tuple[dict, dict]:
 
     import numpy as np
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.solve import SolveSpec, plan, set_tuning_db
     from repro_torch.solve import tune as T
 
@@ -2146,7 +2165,8 @@ def tune_path(graphs: dict) -> tuple[dict, dict]:
         reset_counts()
         t0 = time.perf_counter()
         res = T.tune(g, mode, db=db, space="full", timer=counting_timer(mode))
-        launches[f"tune {mode} {label}"] = read_counts()
+        launches[f"tune {mode} {label}"] = {
+            **read_counts(), "min_outgoing_flat64": ops.min_outgoing_flat64.launches}
         for r in res.ranking:
             check(r.spec.segmin != T.PLAIN_SEGMIN
                   and r.spec.resolve(g).segmin_flat is not ref.segment_min_flat_ref,
@@ -3120,7 +3140,7 @@ def retrieval_ok(params, ids, cfg, out):
 
 def train_path(g_rmat, smi: str, device="cuda") -> dict:
     """Phase 6k: (a) and (b); returns the kernel launches of the whole
-    phase (the trainer runs none of the four kernels)."""
+    phase (the trainer runs none of the five kernels)."""
     import tempfile
 
     from repro_torch.kernels import build
@@ -3466,7 +3486,7 @@ def lm_train_full(smi: str, device="cuda") -> list:
 
 def lm_path(smi: str, device="cuda") -> dict:
     """Phase 6l: (a)-(d); returns the kernel launches of the whole phase
-    (the LM path runs none of the four kernels)."""
+    (the LM path runs none of the five kernels)."""
     import tempfile
 
     from repro_torch.kernels import build
@@ -4329,6 +4349,150 @@ def dryrun_path(smi: str, decode_coll: dict, dist_row: dict, flat_cost: dict) ->
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 6o: the 64-bit min-outgoing kernel of the unpacked flat round
+# ---------------------------------------------------------------------------
+
+def unpacked_graph(g):
+    """``g`` with every weight + 0.5 (each undirected edge keeps one): no
+    longer integers, so the planner cannot pack it at any size."""
+    from repro_torch.graphs.structures import Graph
+
+    return Graph(g.src, g.dst, g.w + 0.5, g.eid, g.valid, n=g.n)
+
+
+def flat64_bound_bytes(e: int, n: int) -> int:
+    """The least bytes of one round of the min-outgoing kernel: every
+    input byte read once (src, dst, w, eid: 4 B an edge, valid 1 B; p 4 B a
+    vertex) and every output byte written once (w, eid, payload: 12 B a
+    root)."""
+    return 17 * e + 16 * n
+
+
+def argmin_route(p, g):
+    """The route the kernel replaced (``segment_argmin``'s three masked
+    scatters over every edge), as ``min_outgoing_coo`` ran it, with its
+    outgoing mask."""
+    from repro_torch.core.semiring import segment_argmin
+
+    ps, pd = p[g.src], p[g.dst]
+    outgoing = (ps != pd) & g.valid
+    return segment_argmin(g.w, g.eid, (pd,), ps, g.n, valid=outgoing), outgoing
+
+
+def flat64_round_inputs(g) -> list:
+    """The parent vector at the top of each AS round of ``g``'s default
+    flat solve, replayed with the driver's own steps."""
+    import torch
+
+    from repro_torch.core import shortcut as sc
+    from repro_torch.core.msf import hook_and_tiebreak
+    from repro_torch.kernels import ops
+
+    p = torch.arange(g.n, dtype=torch.int32, device=g.device)
+    rounds = [p]
+    while True:
+        r, _ = ops.min_outgoing_flat64(p, g.src, g.dst, g.w, g.eid, g.valid, g.n)
+        p_next = sc.complete_shortcut(hook_and_tiebreak(p, r.w, r.eid, r.payload[0])[0])
+        if torch.equal(p_next, p):
+            return rounds
+        p = p_next
+        rounds.append(p)
+
+
+def flat64_rounds(label: str, g, *, plain: bool) -> list:
+    """Phase 6o: ``ops.min_outgoing_flat64`` on each AS round's parent
+    vector of ``g``'s default solve, checked against the route it replaced
+    (weights compared with zeros' signs made equal, eid and payload
+    exactly; the in-kernel count against ``count_true`` of the mask), then
+    timed: the device time of each of its four kernels (torch.profiler,
+    by name), the call (CUDA events), the round's bound
+    (:func:`flat64_bound_bytes`), the replaced route's device time (one
+    call: it takes seconds a round at scale 25) and, with ``plain``, the
+    plain twin's on the card."""
+    import torch
+
+    from repro_torch.core.msf import count_true
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    e = g.src.numel()
+    for k, p in enumerate(flat64_round_inputs(g)):
+        call = partial(ops.min_outgoing_flat64, p, g.src, g.dst, g.w, g.eid, g.valid, g.n)
+        got, count = call(count=True)
+        want, outgoing = argmin_route(p, g)
+        outgoing = int(count_true(outgoing))
+        same = (torch.equal((got.w + 0.0).view(torch.int32), (want.w + 0.0).view(torch.int32))
+                and torch.equal(got.eid, want.eid)
+                and torch.equal(got.payload[0], want.payload[0]))
+        check(same, f"6o {label} round {k}: the kernel differs from segment_argmin's route")
+        check(int(count) == outgoing,
+              f"6o {label} round {k}: in-kernel count {int(count)} != {outgoing}")
+        del got, want, count
+        for _ in range(2):
+            call()
+        reps = 5
+        by_name = {}
+        for ev in device_rows(call, reps):
+            name = next((kn for kn in ("fill", "reduce", "payload", "decode")
+                         if f"{kn}_kernel" in ev.key), "other")
+            by_name[name] = by_name.get(name, 0.0) + ev.self_device_time_total / 1e3 / reps
+        bytes_ = flat64_bound_bytes(e, g.n)
+        row = {"round": k, "E": e, "outgoing": outgoing, "outgoing_share": outgoing / max(1, e),
+               **{f"{kn}_ms": by_name.get(kn, 0.0) for kn in ("fill", "reduce", "payload",
+                                                              "decode")},
+               "kernel_ms": sum(by_name.values()), "kernel_call_ms": time_ms(call, reps, 1),
+               "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bytes": bytes_,
+               "library_ms": device_ms(partial(argmin_route, p, g), reps=1, warmup=0)}
+        if plain:
+            row["plain_ms"] = device_ms(partial(ref.min_outgoing_flat64_ref, p, g.src, g.dst,
+                                                g.w, g.eid, g.valid, g.n), reps=3, warmup=1)
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        print(f"  {label} round {k}: outgoing {row['outgoing_share']:.4f}, reduce "
+              f"{row['reduce_ms']:.3f} + payload {row['payload_ms']:.3f} ms (kernel "
+              f"{row['kernel_ms']:.3f}, call {row['kernel_call_ms']:.3f}, bound "
+              f"{row['bound_ms']:.3f}), replaced route {row['library_ms']:.3f} ms", flush=True)
+    return rows
+
+
+def flat64_path(g_rmat, smi: str) -> dict:
+    """Phase 6o on phase 5's graph made unpacked and on the benchmark cell
+    :data:`FLAT64_CELL`'s graph: the per-round rows, then the default
+    solve of each (median of 3, one launch per AS round, planned without
+    pack32)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.solve import SolveSpec, plan
+
+    out = {}
+    for label, make, plain in (("rmat_s20_ef8_unpacked", lambda: unpacked_graph(g_rmat), True),
+                               (FLAT64_CELL, lambda: bench_cell_graph(FLAT64_CELL)[0], False)):
+        g = make()
+        p = plan(g, SolveSpec())
+        check(p.resolved.pack is False, f"6o {label}: the planner packed the graph")
+        before = ops.min_outgoing_flat64.launches
+        rep = p.solve()
+        torch.cuda.synchronize()
+        launches = ops.min_outgoing_flat64.launches - before
+        check(launches == rep.iterations > 0,
+              f"6o {label}: {launches} min-outgoing launches for {rep.iterations} rounds")
+        rows = flat64_rounds(label, g, plain=plain)
+        check(len(rows) == rep.iterations, f"6o {label}: {len(rows)} replayed rounds, "
+                                           f"{rep.iterations} solved")
+        out[label] = {"rounds": rows, "launches_per_solve": launches,
+                      "solve_s": solve_times(g, {"solve": SolveSpec()})["solve_s"],
+                      "edges": g.src.numel(), "n": g.n}
+        print(json.dumps({f"min_outgoing_flat64 {label}": out[label], "card": smi}), flush=True)
+        del g, p, rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
     """Median end-to-end solve seconds of each spec (planning included),
     in turns after one warm-up each."""
@@ -4504,6 +4668,14 @@ def obs_phase(g_rmat, g_grid, smi) -> None:
     print(f"  phase 6h took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def flat64_phase(g_rmat, smi) -> dict:
+    phase("6o the 64-bit min-outgoing kernel per AS round")
+    t0 = time.perf_counter()
+    out = flat64_path(g_rmat, smi)
+    print(f"  phase 6o took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def obs_only() -> None:
     """``python chip_smoke.py --phase 6h``: the build and phase 6h alone."""
     import torch
@@ -4521,6 +4693,28 @@ def obs_only() -> None:
     build.build_all()
     obs_phase(rmat_graph(**RMAT, device="cuda"), grid_road_graph(*GRID, device="cuda"), smi)
     print(json.dumps({"ok": True, "phases": ["6h"]}))
+
+
+def flat64_only() -> None:
+    """``python chip_smoke.py --phase 6o``: the build and phase 6o alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels import build
+
+    phase("1 device")
+    smi = smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
+    phase("2 build")
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    libs = build.build_all()
+    for line in libs["min_outgoing_flat64"].with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    flat64_phase(rmat_graph(**RMAT, device="cuda"), smi)
+    print(json.dumps({"ok": True, "phases": ["6o"]}))
 
 
 def main():
@@ -4611,6 +4805,7 @@ def main():
     print(f"  phase 6g took {time.perf_counter() - t0:.1f} s", flush=True)
 
     obs_phase(g_rmat, g_grid, smi)
+    flat64 = flat64_phase(g_rmat, smi)
 
     phase("6i plan cost (the tuner and the load harness run after phase 7)")
     t0 = time.perf_counter()
@@ -4836,6 +5031,29 @@ def main():
         "timed_on": "the bucketed layouts of the grid 1024 x 1024 and R-MAT s14 ef8 (segment "
                     "= source vertex), mean per launch; library: scatter_reduce_ amin over "
                     "b * 128 + rows; " + entry_note,
+    }, {
+        "name": "min_outgoing_flat64",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/min_outgoing_flat64.cu",
+        "replaces": "no TPU kernel: segment_argmin's three masked scatters of the unpacked "
+                    "root route (src/repro/core/multilinear.py::min_outgoing_coo)",
+        "launches": flat64["rmat_s20_ef8_unpacked"]["launches_per_solve"],
+        "launches_by_path": {
+            **{f"flat {k}": v["launches_per_solve"] for k, v in flat64.items()},
+            **{k: v["min_outgoing_flat64"] for k, v in tune_launches.items()},
+            "train": train_launches["min_outgoing_flat64"],
+            "lm": lm_launches["min_outgoing_flat64"],
+            "lm_sharded": lm_mesh_launches["min_outgoing_flat64"],
+            "dryrun": dryrun_launches["min_outgoing_flat64"]},
+        "matches_plain": True,
+        **{k: {f: statistics.fmean(r[f] for r in v["rounds"])
+               for f in ("reduce_ms", "payload_ms", "kernel_ms", "kernel_call_ms", "bound_ms",
+                         "library_ms", *(("plain_ms",) if "plain_ms" in v["rounds"][0] else ()))}
+           for k, v in flat64.items()},
+        "bound_by": "bytes",
+        "timed_on": "every AS round's parent vector of the default solve of R-MAT s20 ef8 "
+                    "with weights + 0.5 and of the g500-s25.solve cell's graph, mean per "
+                    "launch; library: the segment_argmin route it replaced; " + entry_note,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -4844,5 +5062,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--phase", "6h"]:
         obs_only()
+    elif sys.argv[1:] == ["--phase", "6o"]:
+        flat64_only()
     else:
         main()

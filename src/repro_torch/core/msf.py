@@ -108,8 +108,10 @@ def _make_msf_body(graph: Graph, variant, shortcut_fn, pack, segmin):
     n_edges = int(src.shape[0])
 
     def min_outgoing(p):
-        """(per-root minimum outgoing edge, bool [E] mask of the edges that
-        took part, or None outside trace mode)."""
+        """(per-root minimum outgoing edge, the edges that took part, or
+        None outside trace mode): their bool [E] mask, or the kernel
+        route's 0-d count (``min_outgoing_coo``), which only trace mode
+        asks the kernel for."""
         tracing = trace_active()
         if variant == "paper":
             s = starcheck(p)
@@ -130,8 +132,9 @@ def _make_msf_body(graph: Graph, variant, shortcut_fn, pack, segmin):
             r, outgoing = min_outgoing_coo_packed(p, src, dst, w, eid, valid, n,
                                                   segmin=segmin, return_outgoing=True)
         else:
-            r, outgoing = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="root",
-                                           return_outgoing=True)
+            got = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="root",
+                                   return_outgoing=tracing)
+            r, outgoing = got if tracing else (got, None)
         return r, (outgoing if tracing else None)
 
     def body(state):
@@ -142,7 +145,7 @@ def _make_msf_body(graph: Graph, variant, shortcut_fn, pack, segmin):
             sp.attach(r)
         if outgoing is not None:
             with trace_span("msf.counts", edges=n_edges) as sp:
-                sp.set(outgoing=int(count_true(outgoing)))
+                sp.set(outgoing=int(outgoing if outgoing.dim() == 0 else count_true(outgoing)))
             del outgoing
         with trace_span("msf.hook") as sp:
             p_h, keep, _ = hook_and_tiebreak(p, r.w, r.eid, r.payload[0])

@@ -52,8 +52,20 @@ def min_outgoing_coo(
     every tree is a star) or "vertex" (segment ids = src, the literal line 9).
 
     Returns EdgeMin over [n] with payload (p_dst,); with ``return_outgoing``
-    also the bool [E] mask of the edges that took part.
+    also the edges that took part: their bool [E] mask, or, on the route
+    of the hand-written kernel, their 0-d int64 count.
+
+    The "root" form without ``star`` on a CUDA graph is that route
+    (``kernels.ops.min_outgoing_flat64``): one pass that sends only the
+    outgoing edges' 64-bit keys, builds no [E] tensor and waits on nothing;
+    its zero weights come out as +0.0. Every other form, and the CPU, runs
+    ``segment_argmin``'s masked scatters.
     """
+    if segment == "root" and star is None and p.device.type == "cuda":
+        from repro_torch.kernels.ops import min_outgoing_flat64  # lazy: layer cycle
+
+        r, count = min_outgoing_flat64(p, src, dst, w, eid, valid, n, count=return_outgoing)
+        return (r, count) if return_outgoing else r
     ps = p[src]
     pd = p[dst]
     outgoing = (ps != pd) & valid

@@ -6,9 +6,10 @@ CUDA device it launches the hand-written kernel or raises. There is no
 fallback from a failed build or launch. Each wrapper counts its kernel
 launches in a plain integer attribute (``segment_min_flat.launches``,
 ``segment_min_sorted.launches``, ``segment_min_bucketed.launches``,
-``multilinear_dense.launches``) and, while ``repro_torch.obs`` metrics are
-on, in the counter ``kernel.<name>.launches``: what a serving process
-reports of its launches through its ``metrics`` snapshot.
+``multilinear_dense.launches``, ``min_outgoing_flat64.launches``) and,
+while ``repro_torch.obs`` metrics are on, in the counter
+``kernel.<name>.launches``: what a serving process reports of its
+launches through its ``metrics`` snapshot.
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ from functools import lru_cache
 import torch
 
 from repro_torch import obs
-from repro_torch.core.semiring import PACK_IDENTITY
+from repro_torch.core.semiring import PACK_IDENTITY, EdgeMin
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (
+    min_outgoing_flat64_ref,
     multilinear_dense_ref,
     segment_min_bucketed_ref,
     segment_min_flat_ref,
@@ -40,6 +42,9 @@ _LAUNCH_ARGS = {
     "multilinear_dense": (_PTR, _PTR, _I64, _PTR, _PTR, _PTR),
     # keys, rows, out, nb, be, block_rows, chunks, buckets_per_block (bucketed_split)
     "segment_min_bucketed": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64),
+    # p, src, dst, w, eid, valid, out, minw, mineid, pay, count (or NULL),
+    # E, n, head, vec_loads (flat64_layout)
+    "min_outgoing_flat64": (*(_PTR,) * 11, _I64, _I64, _I64, _I64),
 }
 
 
@@ -111,6 +116,75 @@ def flat_layout(keys_addr: int, segs_addr: int, num_edges: int) -> tuple[int, bo
     ss = segs_addr // 4 % 4  # ids past a 16-byte boundary
     head, vec_ids = ((4 - ss) % 4, True) if ss % 2 == ks else (ks, False)
     return min(head, num_edges), vec_ids
+
+
+def flat64_layout(int_addrs, valid_addr: int, num_edges: int) -> tuple[int, bool]:
+    """Where the min-outgoing kernel's body starts: ``(head, vec_loads)``.
+
+    The body reads each 4-edge group's src, dst, w and eid (4-byte
+    elements at the addresses ``int_addrs``) as 16-byte vectors and its
+    valid bytes (at ``valid_addr``) as one 4-byte word, from the first edge
+    ``head`` (< 4, at most ``num_edges``) at which all five are so aligned.
+    Where no edge aligns them all (views that start at different offsets),
+    ``vec_loads`` is False, ``head`` is 0 and the body reads edge by edge.
+    """
+    offsets = {a // 4 % 4 for a in int_addrs} | {valid_addr % 4}
+    if len(offsets) != 1:
+        return 0, False
+    return min((4 - offsets.pop()) % 4, num_edges), True
+
+
+def min_outgoing_flat64(p, src, dst, w, eid, valid, n: int, *, count: bool = False):
+    """Per-root minimum outgoing edge of a symmetric COO graph whose every
+    tree is a star, with 64-bit ``(w, eid)`` keys:
+    ``min_outgoing_coo(segment="root")`` without pack32.
+
+    p int32 [n]; src, dst, eid int32 [E]; w float32 [E] (not NaN); valid
+    bool [E]; all 1-D and contiguous on one device. Returns ``(EdgeMin over
+    [n] with payload (p_dst,), count)``: what ``semiring.segment_argmin``
+    gives over the outgoing edges (``valid`` and ``p[src] != p[dst]``), a
+    zero weight as ``+0.0``; ``count`` is the 0-d int64 number of outgoing
+    edges when asked for, else ``None``. CPU tensors run
+    :func:`~repro_torch.kernels.ref.min_outgoing_flat64_ref`; CUDA tensors
+    launch ``csrc/min_outgoing_flat64.cu``, which allocates nothing
+    edge-sized and waits on nothing.
+    """
+    arrays = {"p": p, "src": src, "dst": dst, "w": w, "eid": eid, "valid": valid}
+    for name, t in arrays.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch tensor")
+        want = {"w": torch.float32, "valid": torch.bool}.get(name, torch.int32)
+        if t.dtype != want:
+            raise ValueError(f"{name} must be {want}, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be 1-D and contiguous")
+        if t.device != p.device:
+            raise ValueError(f"{name} on {t.device} but p on {p.device}")
+    e = src.numel()
+    if any(t.numel() != e for t in (dst, w, eid, valid)):
+        raise ValueError("src, dst, w, eid and valid must have one length")
+    if not isinstance(n, int) or not 0 <= n <= _INT32_MAX or p.numel() != n:
+        raise ValueError(f"p must be [n] with n an int in [0, 2^31), got n={n!r}, "
+                         f"p {tuple(p.shape)}")
+    if p.device.type == "cpu":
+        r, cnt = min_outgoing_flat64_ref(p, src, dst, w, eid, valid, n)
+        return r, (cnt if count else None)
+    if p.device.type != "cuda":
+        raise ValueError(f"unsupported device {p.device}")
+    dev = p.device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    minw = torch.empty(n, dtype=torch.float32, device=dev)
+    mineid = torch.empty(n, dtype=torch.int32, device=dev)
+    pay = torch.empty(n, dtype=torch.int32, device=dev)
+    cnt = torch.empty((), dtype=torch.int64, device=dev) if count else None
+    head, vec = flat64_layout([t.data_ptr() for t in (src, dst, w, eid)], valid.data_ptr(), e)
+    _launch("min_outgoing_flat64", p, src, dst, w, eid, valid, out, minw, mineid, pay,
+            cnt if count else 0, e, n, head, int(vec))
+    _count_launch(min_outgoing_flat64)
+    return EdgeMin(w=minw, eid=mineid, payload=(pay,)), cnt
+
+
+min_outgoing_flat64.launches = 0
 
 
 def _check_segment_min_args(keys, segs, num_segments) -> None:

@@ -4,7 +4,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.semiring import IMAX, INF, PACK_IDENTITY
+from repro_torch.core.semiring import IMAX, INF, PACK_IDENTITY, EdgeMin
+
+#: The 64-bit identity of the min-outgoing twin's keys: all ones as an
+#: unsigned value, held with its top bit flipped (int64 max).
+KEY64_IDENTITY = int(torch.iinfo(torch.int64).max)
 
 
 def segment_min_flat_ref(keys: torch.Tensor, segs: torch.Tensor, num_segments: int):
@@ -71,3 +75,50 @@ def multilinear_dense_ref(p: torch.Tensor, a: torch.Tensor):
     winner = on & (col[None, :] == mincol[:, None])
     minpay = torch.amin(torch.where(winner, p[None, :].to(torch.int32), IMAX), dim=1)
     return minw, mincol, minpay
+
+
+def key64(w: torch.Tensor, eid: torch.Tensor) -> torch.Tensor:
+    """The min-outgoing kernel's 64-bit keys ``ord(w) << 32 | (eid ^ 2^31)``
+    (``csrc/min_outgoing_flat64.cu``), as int64 with the top bit flipped:
+    torch on the CPU has no uint64 min, and the flip orders the same way.
+    ``-0.0`` is keyed as ``+0.0``."""
+    bits = torch.where(w == 0, 0.0, w).view(torch.int32).long()
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # floats in signed order
+    return (ordered << 32) | (eid.long() + (1 << 31))
+
+
+def unkey64(keys: torch.Tensor):
+    """(w float32, eid int32) of :func:`key64` keys."""
+    hi = keys >> 32
+    bits = hi ^ ((hi >> 31) & 0x7FFFFFFF)
+    w = bits.to(torch.int32).view(torch.float32)
+    return w, ((keys & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def min_outgoing_flat64_ref(p, src, dst, w, eid, valid, n: int):
+    """Plain version of ``csrc/min_outgoing_flat64.cu``: per root
+    ``s = p[src]``, the least ``(w, eid)`` over the outgoing edges
+    (``valid`` and ``p[src] != p[dst]``) with the ``p[dst]`` of its edge
+    (the least one where a multigraph repeats the pair).
+
+    p int32 [n]; src, dst, eid int32 [E]; w float32 [E] (not NaN); valid
+    bool [E]. Returns (EdgeMin over [n], int64 0-d count of the outgoing
+    edges); ``(inf, IMAX, IMAX)`` at roots with no outgoing edge, and a
+    zero weight as ``+0.0``. Roots outside ``[0, n)`` are dropped.
+    """
+    ps = p[src].long()
+    pd = p[dst]
+    outgoing = valid & (ps != pd)
+    count = outgoing.sum()
+    take = (outgoing & (ps >= 0) & (ps < n)).nonzero().squeeze(1)
+    seg, key, pd = ps[take], key64(w[take], eid[take]), pd[take]
+    out = torch.full((n,), KEY64_IDENTITY, dtype=torch.int64, device=p.device)
+    out.scatter_reduce_(0, seg, key, "amin", include_self=True)
+    win = key == out[seg]
+    pay = torch.full((n,), IMAX, dtype=torch.int32, device=p.device)
+    pay.scatter_reduce_(0, seg[win], pd[win], "amin", include_self=True)
+    empty = out == KEY64_IDENTITY
+    minw, mineid = unkey64(out)
+    r = EdgeMin(w=torch.where(empty, INF, minw), eid=torch.where(empty, IMAX, mineid),
+                payload=(pay,))
+    return r, count

@@ -21,9 +21,13 @@ Scope and units, as in the reference:
   (``payload``), ``hook_and_tiebreak`` (``hook``), ``record_edges``
   (``record``) and the shortcut (``shortcut``: ``SHORTCUT_STEPS``
   pointer-jump steps, or CSP's changed map) with the convergence test.
-  Without pack32 the reduction is the three-pass masked float
-  ``segment_argmin`` (``segment_min``: the scatters at their
-  traffic, ``payload``: the passes between them).
+  Without pack32 the reduction is, on the card, the hand-written
+  64-bit-key kernel (``kernels.ops.min_outgoing_flat64``, charged with
+  every edge outgoing: ``gathers`` its two passes' reads of ``p``,
+  ``segment_min`` the fill and the reduce pass, ``payload`` the payload
+  pass and the decode), and elsewhere the three-pass masked float
+  ``segment_argmin`` (``segment_min``: the scatters at their traffic,
+  ``payload``: the passes between them).
 - **coarsen** — level 0 of ``coarsen/engine.py``: its K hook rounds over
   the undirected arrays (``contract.py::make_und_reduce``: two
   segment-mins per round), the rank relabel and, for ``fused=True``,
@@ -147,6 +151,27 @@ def _segmin_packed(t: _Tally, e: int, n: int) -> None:
     t.add("segment_min", e * (_I64 + _I32) + n * _I64, e)
 
 
+def _outgoing_mask(t: _Tally, e: int) -> None:
+    """``p[src]``, ``p[dst]`` and the outgoing mask, in torch."""
+    t.gather("gathers", e, _I32)  # p[src]
+    t.gather("gathers", e, _I32)  # p[dst]
+    t.ew("key_build", e, 2 * _I32, _B)  # ps != pd
+    t.ew("key_build", e, 2 * _B, _B)  # & valid
+
+
+def _min_outgoing64(t: _Tally, e: int, n: int) -> None:
+    """``kernels.ops.min_outgoing_flat64`` with every edge outgoing: the
+    fill, the reduce pass and the payload pass (each streams src, dst,
+    valid, w and eid and gathers ``p`` twice; the payload pass reads the
+    root's key per edge) and the decode."""
+    for term in ("segment_min", "payload"):
+        t.add(term, e * (2 * _I32 + _B + _F32 + _I32), e)
+        t.add("gathers", e * 2 * _I32)
+    t.add("segment_min", n * 2 * _I64)  # the fill; one key written per root
+    t.add("payload", e * _I64 + n * 2 * _I32)  # out[ps]; the fill, one payload per root
+    t.add("payload", n * (_I64 + _F32 + _I32))  # the decode
+
+
 def _unpack(t: _Tally, term: str, n: int) -> None:
     t.ew(term, n, _I64, _I64)  # >> 24
     t.ew(term, n, _I64, _I32)  # .to(int32)
@@ -218,11 +243,8 @@ def _csp_shortcut(t: _Tally, n: int, capacity: int) -> None:
 def flat_round_terms(n: int, e: int, rs) -> dict:
     """Per-round terms of the flat AS solve: ``{term: (bytes, ops)}``."""
     t = _Tally()
-    t.gather("gathers", e, _I32)  # p[src]
-    t.gather("gathers", e, _I32)  # p[dst]
-    t.ew("key_build", e, 2 * _I32, _B)  # ps != pd
-    t.ew("key_build", e, 2 * _B, _B)  # & valid
     if rs.pack:
+        _outgoing_mask(t, e)
         _key_build(t, e)
         _segmin_packed(t, e, n)
         _unpack(t, "payload", n)
@@ -234,7 +256,10 @@ def flat_round_terms(n: int, e: int, rs) -> dict:
         t.gather("payload", n, _I32, idx32=False)  # pd[win]
         t.gather("payload", n, _I32, idx32=False)  # ps[win]
         t.scatter_min("payload", n, _I32, n)  # the payload segment-min
+    elif rs.backend == "cuda":
+        _min_outgoing64(t, e, n)
     else:  # semiring.segment_argmin over the root segments
+        _outgoing_mask(t, e)
         t.ew("index_casts", e, _I32, _I64)  # seg.long()
         t.ew("payload", e, _B + _F32, _F32)  # where(valid, w, inf)
         t.scatter_min("segment_min", e, _F32, n, idx32=False)

@@ -109,8 +109,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_build_is_keyed_on_source_hash():
-    assert build.sources() == ["multilinear_dense", "segment_min_bucketed",
-                               "segment_min_flat", "segment_min_sorted"]
+    assert build.sources() == ["min_outgoing_flat64", "multilinear_dense",
+                               "segment_min_bucketed", "segment_min_flat", "segment_min_sorted"]
     lib = build.library_path("segment_min_flat")
     assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
     assert lib == build.library_path("segment_min_flat")
