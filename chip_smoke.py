@@ -92,12 +92,17 @@ Phases:
      of the grid and one stream update with obs off, "metrics" and
      "trace": identical reports, one msf.round span per AS round, the
      exported traces accepted by tools/check_trace.py, host syncs per
-     flat solve (40 with obs off and with "metrics"; "trace" adds five a
+     flat solve (36 with obs off and with "metrics"; "trace" adds five a
      round, the spans' own, and one for msf.flat; the traced solve's
      host_syncs tally equals the untraced count) and median solve times
-     per mode; then each benchmark cell's graph (BENCHMARK.json, made as
-     msfbench makes it): the tally against the untraced and the traced
-     solve's syncs, the per-round spans, and the cost of tracing
+     per mode; the report through page-locked buffers: equal to a read of
+     each field into pageable memory, a kept report unchanged by later
+     solves of other graphs, the solve.report span's pinned and d2h_bytes,
+     two waits; the card's page-locked and pageable copy rates of 128 MiB
+     and the cost of a fresh page-locked 128 MiB; then each benchmark
+     cell's graph (BENCHMARK.json, made as msfbench makes it): the tally
+     against the untraced and the traced solve's syncs and the cell's own
+     count, the report span, the per-round spans, and the cost of tracing
      (``python3 chip_smoke.py --phase 6h`` runs the build and this phase
      alone);
   6i. cost, tuner and load harness: plan.cost of the flat plans of phase
@@ -105,7 +110,7 @@ Phases:
      roofline prediction for the report's rounds beside the median solve
      and the device busy time, the cost the report's, no host sync in the
      model, the flat model's segment-min term equal to round 1's bytes
-     with every key live, 40 host syncs per R-MAT s20 flat solve;
+     with every key live, 36 host syncs per R-MAT s20 flat solve;
      tune(g, "flat", space="full") on R-MAT s20 and the grid and
      tune(g, "coarsen", space="full") on the grid with a timer that checks
      each measured solve's launches (one flat launch per AS round), no
@@ -314,10 +319,15 @@ LOADGEN_FLAGS = ("--scale", "20", "--edge-factor", "8", "--seed", "0", "--writer
                  "131072", "--micro-batch", "4096", "--queue-cap", "65536", "--duration", "10")
 LOADGEN_QPS0 = 10_000
 LOADGEN_ATTEMPTS = 3
-# Host syncs of one flat R-MAT s20 solve (5 AS rounds; phase 6h, PR 16).
-FLAT_RMAT_SYNCS = 40
-# Phase 6h on the benchmark's cells (BENCHMARK.json): solves timed per obs mode.
+# Host syncs of one flat R-MAT s20 solve (5 AS rounds; phase 6h): the report
+# waits twice, for its scalars and then for both arrays.
+FLAT_RMAT_SYNCS = 36
+# Phase 6h on the benchmark's cells (BENCHMARK.json): solves timed per obs
+# mode, and the host syncs of one solve of the cell's graph.
 BENCH_CELLS = {"g500-s25.solve": 3, "g500-s24.coarsen": 6}
+BENCH_CELL_SYNCS = {"g500-s25.solve": 38, "g500-s24.coarsen": 56}
+# Phase 6h: the report's arrays are int32 [n] at most, 128 MiB at scale 25.
+REPORT_PROBE_BYTES = 1 << 27
 # Phase 6o: the 64-bit min-outgoing kernel per AS round on phase 5's graph
 # made unpacked (weights + 0.5) and on this cell's own graph.
 FLAT64_CELL = "g500-s25.solve"
@@ -1917,8 +1927,9 @@ def obs_path(g_flat, g_coarsen, device="cuda") -> dict:
         row["host_syncs_per_flat_solve"] = {
             m: count_syncs(plan(g_flat, SolveSpec(obs=m)).solve) for m in modes}
         syncs = row["host_syncs_per_flat_solve"]
-        check(device == "cpu" or syncs["off"] == 40,
-              f"obs: {syncs['off']} host syncs per flat solve with obs off, not 40")
+        check(device == "cpu" or syncs["off"] == FLAT_RMAT_SYNCS,
+              f"obs: {syncs['off']} host syncs per flat solve with obs off, "
+              f"not {FLAT_RMAT_SYNCS}")
         # trace adds the spans' own syncs: msf.round, its three phase spans
         # and the read of msf.counts each round, msf.flat once; the
         # program's tally counts what the untraced solve waits
@@ -1969,6 +1980,120 @@ def obs_path(g_flat, g_coarsen, device="cuda") -> dict:
     return row
 
 
+def report_bytes(n: int, n_f: int) -> int:
+    """Bytes a card result's report copies to the host: ``parent`` and
+    ``msf_eids[:n_f]`` (int32), the float32 weight and two int32 counts."""
+    return 4 * (n + n_f) + 12
+
+
+def pageable_report(rep):
+    """``rep`` as reading each field of ``rep.raw`` into pageable memory
+    gives it: ``.cpu().numpy()`` of the whole arrays, the eids trimmed on
+    the host."""
+    import numpy as np
+
+    r = rep.raw
+    n_f = int(r.n_msf_edges.cpu())
+    return rep._replace(weight=float(r.weight.cpu()),
+                        msf_eids=r.msf_eids.cpu().numpy()[:n_f].astype(np.int32),
+                        parent=r.parent.cpu().numpy(), n_msf_edges=n_f,
+                        iterations=int(r.iterations.cpu()))
+
+
+def report_path(g_flat, g_coarsen, device="cuda") -> dict:
+    """Phase 6h, the report: on the flat solve of ``g_flat`` and the
+    coarsen solve of ``g_coarsen``, the page-locked report equal to the
+    pageable read of its result, its arrays page-locked, two host waits,
+    the solve.report span's ``pinned`` and ``d2h_bytes``; a flat report
+    kept while two graphs of its size are solved (the first of them
+    dropped) keeps its values in memory of its own; then
+    :func:`pinned_copy_probe`."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.solve import SolveSpec, plan
+    from repro_torch.solve.report import report_from_msf_result
+
+    row = {}
+    for label, g, spec in (("flat", g_flat, SolveSpec()),
+                           ("coarsen", g_coarsen, SolveSpec(mode="coarsen"))):
+        rep = plan(g, spec).solve()
+        check(same_report(rep, pageable_report(rep)),
+              f"report: {label}: the page-locked report differs from the pageable read")
+        check(device == "cpu" or all(torch.from_numpy(a).is_pinned()
+                                     for a in (rep.msf_eids, rep.parent)),
+              f"report: {label}: the arrays are not page-locked")
+        syncs = count_syncs(lambda: report_from_msf_result(rep.mode, rep.raw, levels=rep.levels))
+        check(device == "cpu" or syncs == 2, f"report: {label}: {syncs} host syncs, not 2")
+        obs.reset()
+        traced = plan(g, SolveSpec(mode=spec.mode, obs="trace")).solve()
+        (span,) = [e for e in obs.trace_events() if e[0] == "solve.report"]
+        want = {"pinned": int(device != "cpu"),
+                "d2h_bytes": report_bytes(g.n, traced.n_msf_edges) if device != "cpu" else 0}
+        check(span[4] == want, f"report: {label}: solve.report attributes {span[4]}, not {want}")
+        obs.reset()
+        row[label] = {"report_ms": span[2] / 1e6, **span[4], "host_syncs": syncs}
+    kept = plan(g_flat, SolveSpec()).solve()
+    want = pageable_report(kept)
+    for seed in (RMAT["seed"] + 1, RMAT["seed"] + 2):
+        other = plan(rmat_graph(**{**RMAT, "seed": seed}, device=g_flat.device),
+                     SolveSpec()).solve()
+        check(not any(np.shares_memory(a, b) for a in (kept.msf_eids, kept.parent)
+                      for b in (other.msf_eids, other.parent)),
+              "report: a later report shares memory with a kept one")
+        del other  # its blocks go back to the cache before the next solve
+    check(same_report(kept, want), "report: a kept report changed under later solves")
+    row["copy_probe"] = pinned_copy_probe() if device != "cpu" else {}
+    print(json.dumps({"report_on_the_card": row}), flush=True)
+    return row
+
+
+def pinned_copy_probe(nbytes: int = REPORT_PROBE_BYTES, reps: int = 8) -> dict:
+    """The card's device-to-host copy of ``nbytes`` into a reused
+    page-locked buffer (a non-blocking copy and a stream wait) and into
+    fresh pageable memory (``.cpu()``), GB/s by the host clock; and the
+    host time of fresh page-locked allocations of that size (each held, so
+    none comes from the cache) beside one the cache hands back."""
+    import torch
+
+    src = torch.ones(nbytes // 4, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream()
+    buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+
+    def pinned():
+        buf.copy_(src, non_blocking=True)
+        stream.synchronize()
+
+    def pageable():
+        return src.cpu()
+
+    rates = {}
+    for name, fn in (("pinned", pinned), ("pageable", pageable)):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        rates[f"{name}_gb_per_s"] = [nbytes / t / 1e9 for t in times]
+        rates[f"{name}_median_ms"] = statistics.median(times) * 1e3
+    check(bool(torch.equal(buf, src.cpu())), "report probe: the page-locked copy differs")
+    fresh, held = [], [buf]  # buf held too: no allocation below finds a free block
+    for _ in range(4):
+        t0 = time.perf_counter()
+        held.append(torch.empty(nbytes // 4, dtype=torch.int32, pin_memory=True))
+        fresh.append((time.perf_counter() - t0) * 1e3)
+    held.pop()
+    t0 = time.perf_counter()
+    held.append(torch.empty(nbytes // 4, dtype=torch.int32, pin_memory=True))
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    del held, buf, src
+    return {"bytes": nbytes, **rates, "fresh_alloc_ms": fresh, "cached_alloc_ms": cached_ms}
+
+
 def bench_cell_graph(cell: str):
     """The graph and the ``SolveSpec`` keywords of one cell of
     BENCHMARK.json, made on the card as ``msfbench`` makes them."""
@@ -2009,7 +2134,8 @@ def bench_cells_obs(cells=BENCH_CELLS) -> dict:
         plan(g, spec["off"]).solve()  # warm-up
         off = count_syncs_split(plan(g, spec["off"]).solve)
         obs.reset()
-        traced = count_syncs_split(plan(g, spec["trace"]).solve)
+        traced_rep = []
+        traced = count_syncs_split(lambda: traced_rep.append(plan(g, spec["trace"]).solve()))
         events = obs.trace_events()
         (solve,) = [e[4] for e in events if e[0] == solve_span]
         rounds = sorted((e for e in events if e[0] == "msf.round"), key=lambda e: e[1])
@@ -2017,6 +2143,11 @@ def bench_cells_obs(cells=BENCH_CELLS) -> dict:
         check(off[1] == 0 and solve["host_syncs"] == off[0] == traced[0] - len(rounds),
               f"obs: {cell}: host_syncs {solve['host_syncs']}, count_syncs_split off {off}, "
               f"trace {traced}, {len(rounds)} rounds")
+        check(off[0] == BENCH_CELL_SYNCS[cell],
+              f"obs: {cell}: {off[0]} host syncs per solve, not {BENCH_CELL_SYNCS[cell]}")
+        (report,) = [e for e in events if e[0] == "solve.report"]
+        want = {"pinned": 1, "d2h_bytes": report_bytes(g.n, traced_rep.pop().n_msf_edges)}
+        check(report[4] == want, f"obs: {cell}: solve.report attributes {report[4]}, not {want}")
         table = []
         for rnd in rounds:
             inside = {e[0]: e for e in events
@@ -2042,6 +2173,7 @@ def bench_cells_obs(cells=BENCH_CELLS) -> dict:
             "host_syncs_tally": solve["host_syncs"], "host_syncs_by_site": solve["host_syncs_by_site"],
             "count_syncs_off": sum(off), "count_syncs_trace": sum(traced),
             "trace_explicit_syncs": traced[1], "rounds": len(rounds),
+            "report_span": report[4], "report_ms": report[2] / 1e6,
             "rounds_table": table, "solve_s": times,
             "trace_cost": mean["trace"] / mean["off"] - 1,
         }
@@ -4663,6 +4795,7 @@ def obs_phase(g_rmat, g_grid, smi) -> None:
     phase("6h obs on the card")
     t0 = time.perf_counter()
     obs_row = obs_path(g_rmat, g_grid)
+    obs_row["report"] = report_path(g_rmat, g_grid)
     obs_row["bench_cells"] = bench_cells_obs()
     print(json.dumps({"obs_on_the_card": obs_row, "card": smi}))
     print(f"  phase 6h took {time.perf_counter() - t0:.1f} s", flush=True)

@@ -34,8 +34,8 @@ class _FlatEngine:
             pack=bool(rs.pack),
             segmin=rs.segmin_flat,
         )
-        with trace_span("solve.report"):  # trace mode: the report's host copies
-            return report_from_msf_result("flat", r)
+        with trace_span("solve.report") as sp:  # trace mode: the report's host copies
+            return report_from_msf_result("flat", r, span=sp)
 
 
 def _build_flat(target, rs: ResolvedSpec, mesh):
@@ -64,9 +64,9 @@ class _CoarsenEngine:
     def solve(self, graph) -> SolveReport:
         r = self._eng(graph)
         st = self._eng.last_stats
-        with trace_span("solve.report"):
+        with trace_span("solve.report") as sp:
             return report_from_msf_result("coarsen", r,
-                                          levels=st.levels if st is not None else ())
+                                          levels=st.levels if st is not None else (), span=sp)
 
 
 def _build_coarsen(target, rs: ResolvedSpec, mesh):

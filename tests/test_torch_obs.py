@@ -485,7 +485,7 @@ def test_phase_spans_nest_in_their_round(spec):
     report = [e for e in events if e[0] == "solve.report"]
     solve = next(e for e in events if e[0] == "solve.flat")
     assert len(report) == 1 and _inside(report[0], solve)
-    assert report[0][4] is None
+    assert report[0][4] == {"pinned": 0, "d2h_bytes": 0}  # a CPU result: read in place
 
 
 @pytest.mark.parametrize("spec", ["complete", "complete-unpacked", "pairwise"])
@@ -519,7 +519,7 @@ def test_host_sync_tally_of_a_flat_solve(pack):
     """host_syncs is the sum of host_syncs_by_site, and each site is what a
     replay of the rounds counts: per round 1 nonzero (2 packed) + (jumps + 1)
     .any() + 1 torch.equal; then the final shortcut's .any(), the
-    iterations copy and the report's 6 reads."""
+    iterations copy and the report's 2 waits (its scalars, then both arrays)."""
     from repro_torch.core import shortcut as sc
     from repro_torch.core.msf import hook_and_tiebreak, run_flat
     from repro_torch.core.multilinear import min_outgoing_coo
@@ -536,11 +536,11 @@ def test_host_sync_tally_of_a_flat_solve(pack):
         r = min_outgoing_coo(p, g.src, g.dst, g.w, g.eid, g.valid, g.n)
         anys += sc.count_shortcut_subiters(hook_and_tiebreak(p, r.w, r.eid, r.payload[0])[0])[1] + 1
     want = {"record_edges.nonzero": rounds, "shortcut.any": anys, "msf.done": rounds,
-            "msf.iterations": 1, "report.scalars": 4, "report.arrays": 2}
+            "msf.iterations": 1, "report.scalars": 1, "report.arrays": 1}
     if pack:
         want["min_outgoing.winners"] = rounds
     assert by_site == want
-    assert attrs["host_syncs"] == rounds * (2 + pack) + anys + 1 + 6
+    assert attrs["host_syncs"] == rounds * (2 + pack) + anys + 1 + 2
 
 
 def test_host_sync_tally_of_csp_and_paper_rounds():
@@ -584,7 +584,7 @@ def test_host_sync_tally_of_a_coarsen_solve(fused):
     assert by_site["filter_host.to_device"] == (5 if fused else 4) * filtered
     assert by_site["coarsen.residual_scalars"] == by_site["coarsen.finalize"] == 3
     assert by_site["labels.mask"] == 2
-    assert by_site["report.scalars"] == 4 and by_site["report.arrays"] == 2
+    assert by_site["report.scalars"] == 1 and by_site["report.arrays"] == 1
 
 
 @pytest.mark.parametrize("mode", ["off", "metrics"])
