@@ -7,10 +7,16 @@ from the run's seed, and solves each once (the warm-up: the kernel
 library's build and load, the plan cache, the allocator). A request is one
 ``plan(g, SolveSpec(**spec))`` of the next graph of the pool, round robin,
 with the traffic file's ``spec``, and its ``solve()`` up to the report on
-the host. Each request's draw of whether its answer is judged is made as
-it leaves. After the window, the answers drawn (and the last answer of
-every graph of the pool) are compared with the plain reference: the
-forest's edge ids, its partition and its weight.
+the host. The answers judged are drawn by blocks (``is_judged``): requests
+fall into consecutive blocks of ``1 / check_share``, and the run's seed
+picks one position in each, known as the block's first request leaves.
+So each answer has the chance ``check_share`` of being judged, and a run
+of N requests keeps ``floor(N * check_share)`` or ``ceil(N * check_share)``
+drawn answers whatever the seed: a kept answer holds its report's host
+buffers, which the solves that follow pay for. After the window, the
+answers drawn (and the last answer of every graph of the pool) are
+compared with the plain reference: the forest's edge ids, its partition
+and its weight.
 """
 from __future__ import annotations
 
@@ -71,8 +77,27 @@ class PortSolver:
         self._solve.clear_plan_cache()
 
 
+def block_size(share: float) -> int:
+    """Requests per block of the judged draw: ``1 / share``, which has to
+    be a whole number."""
+    b = round(1 / share) if share > 0 else 0
+    if b < 1 or abs(b * share - 1) > 1e-9:
+        raise ValueError(f"check_share {share!r}: its inverse is not a whole number")
+    return b
+
+
+def is_judged(seed: int, share: float, k: int) -> bool:
+    """Whether the answer of request ``k`` (from 0) is judged: the seed's
+    ``sample`` stream picks one position in each block of ``1 / share``
+    consecutive requests."""
+    b = block_size(share)
+    return rng.stream_seed(seed, "sample", k // b) % b == k % b
+
+
 def run(ctx, system=None) -> Outcome:
     tr = ctx.traffic
+    share = float(tr["check_share"])
+    block_size(share)  # a share whose inverse is not whole fails before set-up
     dev = ctx.device
     system = (system or PortSolver)(dev, tr.get("spec"))
     if ctx.trace:
@@ -82,8 +107,6 @@ def run(ctx, system=None) -> Outcome:
     graphs = [system.graph(e) for e in pool]
     for g in graphs:  # warm-up: every graph once
         system.solve(system.plan(g))
-    keep_gen = rng.generator("cpu", ctx.seed, "sample")
-    share = float(tr["check_share"])
     keep_mask: list = []  # request index -> its answer is judged
     sub = ctx.subwindow("msfbench.solve")
     sub.begin()
@@ -97,7 +120,7 @@ def run(ctx, system=None) -> Outcome:
     k = 0
     while time.perf_counter_ns() < deadline:
         i = k % len(graphs)
-        keep_mask.append(bool(torch.rand(1, generator=keep_gen) < share))
+        keep_mask.append(is_judged(ctx.seed, share, k))
         sub.step(k)
         with sub.range():
             t0 = time.perf_counter_ns()

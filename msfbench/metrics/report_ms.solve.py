@@ -1,7 +1,8 @@
 """report_ms.solve (ms, program span): mean length of the ``solve.report``
 spans of flat solves (``solve/engines.py``: the report's copies of the
-forest's edge ids and the parent vector to pageable host memory, and its
-scalar reads), in trace mode."""
+forest's edge ids and the parent vector into page-locked host buffers,
+fresh ones where no free pair is cached, and its scalar reads), in trace
+mode."""
 from msfbench.readers import mean, span_durations_ms
 
 
