@@ -1,7 +1,7 @@
 """Static configuration of the contract-and-filter pipeline.
 
-Leaf module, imported by the coarsening engine and the
-``repro_torch.solve`` spec layer alike, so it imports neither.
+Leaf module, imported by the coarsening engine and the solve spec layer
+alike, so it imports neither.
 """
 from __future__ import annotations
 
@@ -17,6 +17,14 @@ SEGMIN_BACKENDS = (None, "auto", "torch", "cuda", "sorted")
 #: pipeline, "host" = the numpy lexsort twin, "auto" = "device" on a CUDA
 #: graph and "host" elsewhere.
 DEDUPE_BACKENDS = ("auto", "device", "host")
+
+
+def resolve_dedupe(dedupe: str, backend: str) -> str:
+    """``dedupe="auto"`` → the device pipeline on CUDA, the numpy lexsort
+    twin elsewhere."""
+    if dedupe != "auto":
+        return dedupe
+    return "device" if backend == "cuda" else "host"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -43,17 +43,18 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.coarsen.config import CoarsenConfig
+from repro_torch.coarsen.config import CoarsenConfig, resolve_dedupe
 from repro_torch.coarsen.contract import contract_rounds, make_und_reduce
 from repro_torch.coarsen.engine import LevelStats, _next_pow2
 from repro_torch.coarsen.filter import filter_level, filter_level_host, front_packed
 from repro_torch.coarsen.relabel import canonical_minvertex_labels
 from repro_torch.core.msf import MSFResult, hook_and_tiebreak, record_edges
 from repro_torch.core.msf_dist import _BlockMemo, _flat_axes, check_mesh, local_blocks
-from repro_torch.core.semiring import IMAX
+from repro_torch.core.semiring import IMAX, auto_pack
 from repro_torch.core.shortcut import complete_shortcut
 from repro_torch.graphs.partition import Partition2D, block_global_ids
 from repro_torch.graphs.structures import host_array
+from repro_torch.kernels import ops
 
 
 def _account_allreduce(rounds: int, n_pad: int, pack: bool) -> None:
@@ -201,8 +202,6 @@ class DistCoarsenMSF:
             eids_live = eid_np[valid_np]
             eid_cap = _next_pow2(int(eids_live.max()) + 1) if eids_live.size else 8
             if self.config.pack is None:
-                from repro_torch.solve.spec import auto_pack  # lazy: layer cycle
-
                 use_pack = auto_pack(w_np, eid_np, valid_np, eid_cap)
             else:
                 use_pack = self.config.pack
@@ -213,13 +212,12 @@ class DistCoarsenMSF:
         return self._prep.get((src_row, dst_col, w, eid, valid), prepare)
 
     def __call__(self, src_row, dst_col, w, eid, valid) -> MSFResult:
-        from repro_torch.solve.spec import resolve_dedupe, resolve_level_segmins
-
         part, cfg, mesh = self.part, self.config, self.mesh
         n0 = part.n
         blocks, eid_cap, use_pack, m_cur = self._prepare(src_row, dst_col, w, eid, valid)
         dev = mesh.device
-        segmin_hook, segmin_dedupe = resolve_level_segmins(cfg.segmin, use_pack, dev.type)
+        segmin_hook, segmin_dedupe = (ops.packed_segmin(cfg.segmin, site) if use_pack else None
+                                      for site in ("flat", "dedupe"))
         in_mesh = resolve_dedupe(cfg.dedupe, dev.type) != "host"
         axes = _flat_axes(self.row_axis, self.col_axis)
 

@@ -42,7 +42,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch import obs
-from repro_torch.coarsen.config import CoarsenConfig
+from repro_torch.coarsen.config import CoarsenConfig, resolve_dedupe
 from repro_torch.coarsen.contract import ContractResult, hook_rounds, make_und_reduce
 from repro_torch.coarsen.filter import (
     filter_level,
@@ -52,8 +52,10 @@ from repro_torch.coarsen.filter import (
 )
 from repro_torch.coarsen.relabel import canonical_minvertex_labels, rank_relabel
 from repro_torch.core.msf import MSFResult, flat_msf
+from repro_torch.core.semiring import auto_pack
 from repro_torch.graphs.partition import Partition2D, partition_edges_2d
 from repro_torch.graphs.structures import IMAX, Graph
+from repro_torch.kernels import ops
 from repro_torch.obs.trace import host_sync, trace_span
 
 
@@ -201,23 +203,17 @@ def fused_level(lo, hi, w, eid, valid, label_map, *, n: int, eid_capacity: int,
 def _level_setup(graph: Graph, cfg: CoarsenConfig, segmins):
     """The canonical edge arrays, their count, the eid capacity, and what
     the levels resolve: pack32 and the backends."""
-    from repro_torch.solve.spec import (  # lazy: layer cycle
-        auto_pack,
-        resolve_dedupe,
-        resolve_level_segmins,
-    )
-
     canon = _canonical(graph)
     use_pack = (
         auto_pack(graph.w, graph.eid, graph.valid, 2 * len(canon[0]))
         if cfg.pack is None else cfg.pack
     )
-    dev_type = graph.device.type
-    hook, dedupe_fn = segmins if segmins is not None else resolve_level_segmins(
-        cfg.segmin, use_pack, dev_type)
+    if segmins is None:
+        segmins = tuple(ops.packed_segmin(cfg.segmin, site) if use_pack else None
+                        for site in ("flat", "dedupe"))
     backends = LevelBackends(
-        pack=bool(use_pack), dedupe=resolve_dedupe(cfg.dedupe, dev_type),
-        hook=hook, dedupe_segmin=dedupe_fn,
+        pack=bool(use_pack), dedupe=resolve_dedupe(cfg.dedupe, graph.device.type),
+        hook=segmins[0], dedupe_segmin=segmins[1],
     )
     return canon[:5], canon[5], _eid_capacity(canon[3], canon[5]), backends
 
@@ -282,8 +278,8 @@ def run_levels(graph: Graph, config: CoarsenConfig | None = None, *,
     """Contract-and-filter until the cutoff; return the residual + prelude.
 
     ``segmins`` is a resolved ``(hook, dedupe)`` pair of packed
-    segment-min callables; ``None`` resolves ``config.segmin`` for the
-    graph's device (:func:`~repro_torch.solve.spec.resolve_level_segmins`).
+    segment-min callables; ``None`` selects ``config.segmin`` at the flat
+    and dedupe sites (:func:`~repro_torch.kernels.ops.packed_segmin`).
     """
     cfg = config or CoarsenConfig()
     if cfg.fused:

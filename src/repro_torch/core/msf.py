@@ -38,6 +38,7 @@ from repro_torch.core.multilinear import (
 )
 from repro_torch.core.semiring import IMAX, INF, segment_argmin
 from repro_torch.graphs.structures import Graph
+from repro_torch.kernels import ops
 
 
 class MSFResult(NamedTuple):
@@ -198,7 +199,7 @@ def run_flat(
     segmin=None,
 ) -> MSFResult:
     """Flat AS driver for callers holding a *resolved* segmin callable
-    (the ``repro_torch.solve`` flat engine, :func:`flat_msf`)."""
+    (the solve package's flat engine, :func:`flat_msf`)."""
     limit = _msf_limit(graph.n, max_iters)
     shortcut_fn = sc.make_shortcut_fn(shortcut, capacity) if variant != "paper" else None
     body = _make_msf_body(graph, variant, shortcut_fn, pack, segmin)
@@ -223,11 +224,8 @@ def run_flat(
 
 def flat_msf(graph: Graph, *, pack: bool = False, segmin: str | None = None,
              **kw) -> MSFResult:
-    """Internal flat AS solve with a *string* segmin request, resolved by
-    ``repro_torch.solve.spec.resolve_flat_segmin`` for the graph's device."""
-    from repro_torch.solve.spec import resolve_flat_segmin  # lazy: layer cycle
-
+    """Internal flat AS solve with a *string* segmin request, selected by
+    :func:`~repro_torch.kernels.ops.packed_segmin` at the flat site."""
     return run_flat(
-        graph, pack=pack,
-        segmin=resolve_flat_segmin(segmin, pack, graph.device.type), **kw,
+        graph, pack=pack, segmin=ops.packed_segmin(segmin, "flat") if pack else None, **kw,
     )

@@ -31,6 +31,7 @@ from repro_torch.core.semiring import (
     segment_min,
     unpack32,
 )
+from repro_torch.kernels import ops
 from repro_torch.obs.trace import host_sync
 
 
@@ -55,16 +56,15 @@ def min_outgoing_coo(
     also the edges that took part: their bool [E] mask, or, on the route
     of the hand-written kernel, their 0-d int64 count.
 
-    The "root" form without ``star`` on a CUDA graph is that route
-    (``kernels.ops.min_outgoing_flat64``): one pass that sends only the
-    outgoing edges' 64-bit keys, builds no [E] tensor and waits on nothing;
-    its zero weights come out as +0.0. Every other form, and the CPU, runs
-    ``segment_argmin``'s masked scatters.
+    The "root" form without ``star`` is that route on every device
+    (``kernels.ops.min_outgoing_flat64``): on the card one pass that sends
+    only the outgoing edges' 64-bit keys, builds no [E] tensor and waits on
+    nothing; on the CPU its plain twin. Its zero weights come out as +0.0.
+    Every other form, such as the paper variant's vertex form with
+    ``star``, runs ``segment_argmin``'s masked scatters.
     """
-    if segment == "root" and star is None and p.device.type == "cuda":
-        from repro_torch.kernels.ops import min_outgoing_flat64  # lazy: layer cycle
-
-        r, count = min_outgoing_flat64(p, src, dst, w, eid, valid, n, count=return_outgoing)
+    if segment == "root" and star is None:
+        r, count = ops.min_outgoing_flat64(p, src, dst, w, eid, valid, n, count=return_outgoing)
         return (r, count) if return_outgoing else r
     ps = p[src]
     pd = p[dst]
@@ -98,7 +98,7 @@ def min_outgoing_coo_packed(
     Valid for ``w`` integral in [0, 255] and ``eid < 2^24 - 1``. The
     per-round reduction is ONE segment-min on the packed key plus one
     payload pass over the winners; ``segmin(keys, segs, n)`` swaps in the CUDA
-    kernel (``kernels.ops.make_packed_segmin``) for the packed one.
+    kernel (``kernels.ops.packed_segmin``) for the packed one.
     ``return_outgoing`` as in :func:`min_outgoing_coo`.
     """
     ps = p[src]

@@ -24,6 +24,8 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch.obs.trace import host_sync
+
 INF = float("inf")
 IMAX = int(torch.iinfo(torch.int32).max)
 
@@ -142,6 +144,33 @@ def unpack32(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def packable(n: int, max_w: int) -> bool:
     return n <= PACK_IDX_MASK + 1 and max_w <= PACK_MAX_W
+
+
+def weights_packable(w) -> bool:
+    """The pack32 weight regime: integral values in [0, 255] (paper §VII)."""
+    w = torch.as_tensor(w).to(torch.float64)
+    if w.numel() == 0:
+        return True
+    ok = torch.all(w == torch.floor(w)) & (w.min() >= 0) & (w.max() <= 255)
+    host_sync("auto_pack.weights")
+    return bool(ok)
+
+
+def auto_pack(w, eid, valid, e_capacity: int) -> bool:
+    """pack32 applies when weights are integral in [0, 255] and both the
+    global eids and the per-level position indices fit 24 bits strictly."""
+    if e_capacity >= PACK_IDX_MASK:
+        return False
+    valid = torch.as_tensor(valid).to(torch.bool)
+    host_sync("auto_pack.mask")
+    wv = torch.as_tensor(w)[valid]
+    if wv.numel() == 0:
+        return True
+    if not weights_packable(wv):
+        return False
+    host_sync("auto_pack.mask")
+    host_sync("auto_pack.eid_max")
+    return int(torch.as_tensor(eid)[valid].max()) < PACK_IDX_MASK
 
 
 # Tropical semiring helper (used by the Bellman-Ford showcase, paper §II-B).

@@ -39,6 +39,16 @@ def host_array(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def _canonicalize(parent) -> np.ndarray:
+    """Pointer-jump a parent vector to its root fixpoint (host-side)."""
+    p = host_array(parent)
+    while True:
+        gp = p[p]
+        if np.array_equal(gp, p):
+            return p
+        p = gp
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph:
     """Symmetric COO graph: ``src/dst/eid`` int32 [E], ``w`` float32 [E],

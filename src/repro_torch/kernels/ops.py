@@ -1,9 +1,11 @@
-"""Wrappers around the port's CUDA kernels and the segment-min resolvers.
+"""Wrappers around the port's CUDA kernels and the segment-min selector.
 
 A wrapper checks its inputs and then dispatches on the tensors' device:
 on the CPU it runs the kernel's plain version (``kernels.ref``); on a
 CUDA device it launches the hand-written kernel or raises. There is no
-fallback from a failed build or launch. Each wrapper counts its kernel
+fallback from a failed build or launch. Only the wrappers look at the
+device: :func:`packed_segmin` picks a wrapper or its plain version by the
+request alone. Each wrapper counts its kernel
 launches in a plain integer attribute (``segment_min_flat.launches``,
 ``segment_min_sorted.launches``, ``segment_min_bucketed.launches``,
 ``multilinear_dense.launches``, ``min_outgoing_flat64.launches``) and,
@@ -20,14 +22,10 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.semiring import PACK_IDENTITY, EdgeMin
-from repro_torch.kernels import build
-from repro_torch.kernels.ref import (
-    min_outgoing_flat64_ref,
-    multilinear_dense_ref,
-    segment_min_bucketed_ref,
-    segment_min_flat_ref,
-    segment_min_sorted_ref,
-)
+# ``ref`` by module: ``core``'s package imports this one (through
+# ``core.multilinear``), so an import that starts at ``kernels.ref``
+# reaches here before ref's names are bound.
+from repro_torch.kernels import build, ref
 
 _INT32_MAX = int(torch.iinfo(torch.int32).max)
 
@@ -167,7 +165,7 @@ def min_outgoing_flat64(p, src, dst, w, eid, valid, n: int, *, count: bool = Fal
         raise ValueError(f"p must be [n] with n an int in [0, 2^31), got n={n!r}, "
                          f"p {tuple(p.shape)}")
     if p.device.type == "cpu":
-        r, cnt = min_outgoing_flat64_ref(p, src, dst, w, eid, valid, n)
+        r, cnt = ref.min_outgoing_flat64_ref(p, src, dst, w, eid, valid, n)
         return r, (cnt if count else None)
     if p.device.type != "cuda":
         raise ValueError(f"unsupported device {p.device}")
@@ -220,7 +218,7 @@ def segment_min_flat(keys: torch.Tensor, segs: torch.Tensor, num_segments: int) 
     """
     _check_segment_min_args(keys, segs, num_segments)
     if keys.device.type == "cpu":
-        return segment_min_flat_ref(keys, segs, num_segments)
+        return ref.segment_min_flat_ref(keys, segs, num_segments)
     out = torch.empty(num_segments, dtype=torch.int64, device=keys.device)
     head, vec_ids = flat_layout(keys.data_ptr(), segs.data_ptr(), keys.numel())
     _launch("segment_min_flat", keys, segs, out, keys.numel(), num_segments, head, int(vec_ids))
@@ -245,7 +243,7 @@ def segment_min_sorted(keys: torch.Tensor, segs: torch.Tensor, num_segments: int
     """
     _check_segment_min_args(keys, segs, num_segments)
     if keys.device.type == "cpu":
-        return segment_min_sorted_ref(keys, segs, num_segments)
+        return ref.segment_min_sorted_ref(keys, segs, num_segments)
     out = torch.empty(num_segments, dtype=torch.int64, device=keys.device)
     _launch("segment_min_sorted", keys, segs, out, keys.numel(), num_segments)
     _count_launch(segment_min_sorted)
@@ -336,7 +334,7 @@ def segment_min_bucketed(keys: torch.Tensor, rows: torch.Tensor, *,
     """
     _check_bucketed_args(keys, rows, block_rows)
     if keys.device.type == "cpu":
-        return segment_min_bucketed_ref(keys, rows, block_rows)
+        return ref.segment_min_bucketed_ref(keys, rows, block_rows)
     nb, be = keys.shape
     out = torch.empty(nb * block_rows, dtype=torch.int64, device=keys.device)
     chunks, per_block = bucketed_split(nb, be, block_rows, _sm_count(keys.device))
@@ -382,7 +380,7 @@ def multilinear_dense(p: torch.Tensor, a: torch.Tensor):
         raise ValueError(f"unsupported device {a.device}")
     p = p.to(torch.int32).contiguous()
     if a.device.type == "cpu":
-        return multilinear_dense_ref(p, a)
+        return ref.multilinear_dense_ref(p, a)
     minw = torch.empty(n, dtype=torch.float32, device=a.device)
     mincol = torch.empty(n, dtype=torch.int32, device=a.device)
     minpay = torch.empty(n, dtype=torch.int32, device=a.device)
@@ -394,50 +392,26 @@ def multilinear_dense(p: torch.Tensor, a: torch.Tensor):
 multilinear_dense.launches = 0
 
 
-def dedupe_segmin_backend(backend: str | None, device_type: str = "cuda"):
-    """Packed segment-min callable for a *dedupe* site, whose segment ids
-    are sorted (the boundary prefix-sum over sorted pair keys in the
-    coarsening filter).
+def packed_segmin(request: str | None, site: str):
+    """The packed segment-min ``fn(keys, segs, num_segments)`` that a
+    segmin ``request`` (``coarsen.config.SEGMIN_BACKENDS``) selects at a
+    reduction ``site``: "flat" (unsorted segment ids: the hook loops) or
+    "dedupe" (the coarsening filter's sorted boundary prefix-sum ranks).
 
-    "sorted"/"cuda" → :func:`segment_min_sorted` (which runs the plain
-    version only on CPU tensors); "torch" → the plain version; None/"auto"
-    → the kernel wrapper when ``device_type`` is "cuda", the plain version
-    elsewhere.
+    "torch" gives the plain version. Every other request gives the kernel
+    wrapper, which runs the plain version on CPU tensors itself:
+    :func:`segment_min_flat` at a flat site ("sorted" degrades to it
+    there) and :func:`segment_min_sorted` at the dedupe site. The
+    selection takes no device. Unlike ``repro.solve.spec``, None gives a
+    level's hook the kernel too: the plain ``scatter_reduce_`` serialises
+    on the identity keys of the edges that are not outgoing, which the
+    kernel skips; the minimum is the same.
     """
-    if backend in (None, "auto"):
-        backend = "cuda" if device_type == "cuda" else "torch"
-    if backend in ("sorted", "cuda"):
-        return segment_min_sorted
-    if backend == "torch":
-        return segment_min_sorted_ref
-    raise ValueError(f"unknown segment-min backend {backend!r}")
-
-
-def flat_segmin_backend(backend: str | None) -> str | None:
-    """Resolve a segmin request for a *flat* reduction site (unsorted
-    segment ids): "sorted" is dedupe-only and degrades to "auto"; every
-    other request passes through."""
-    return "auto" if backend == "sorted" else backend
-
-
-def make_packed_segmin(backend: str = "auto", device_type: str = "cuda"):
-    """Packed segment-min callable ``fn(keys, segs, num_segments)``.
-
-    ``backend``: "torch" (the plain version), "cuda" (the kernel wrapper,
-    which runs the plain version only on CPU tensors), "sorted" (the
-    sorted-segment kernel wrapper: the caller's segment ids MUST be
-    non-decreasing) or "auto" ("cuda" when ``device_type`` is "cuda",
-    "torch" otherwise).
-    """
-    if backend == "auto":
-        backend = "cuda" if device_type == "cuda" else "torch"
-    if backend == "torch":
-        return segment_min_flat_ref
-    if backend == "cuda":
-        return segment_min_flat
-    if backend == "sorted":
-        return segment_min_sorted
-    raise ValueError(f"unknown segment-min backend {backend!r}")
+    if request not in (None, "auto", "torch", "cuda", "sorted"):
+        raise ValueError(f"unknown segment-min backend {request!r}")
+    kernel, plain = {"flat": (segment_min_flat, ref.segment_min_flat_ref),
+                     "dedupe": (segment_min_sorted, ref.segment_min_sorted_ref)}[site]
+    return plain if request == "torch" else kernel
 
 
 def bucket_edges_by_row_block(seg: torch.Tensor, keys: torch.Tensor, n: int,

@@ -25,9 +25,10 @@ Scope and units, as in the reference:
   64-bit-key kernel (``kernels.ops.min_outgoing_flat64``, charged with
   every edge outgoing: ``gathers`` its two passes' reads of ``p``,
   ``segment_min`` the fill and the reduce pass, ``payload`` the payload
-  pass and the decode), and elsewhere the three-pass masked float
-  ``segment_argmin`` (``segment_min``: the scatters at their traffic,
-  ``payload``: the passes between them).
+  pass and the decode), and for a plan resolved for another device the
+  three-pass masked float ``segment_argmin`` (``segment_min``: the
+  scatters at their traffic, ``payload``: the passes between them), not
+  the passes of the kernel's twin that the CPU runs.
 - **coarsen** — level 0 of ``coarsen/engine.py``: its K hook rounds over
   the undirected arrays (``contract.py::make_und_reduce``: two
   segment-mins per round), the rank relabel and, for ``fused=True``,
@@ -55,6 +56,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.analysis.roofline import H100_SXM, roofline_time_s
+from repro_torch.coarsen.config import resolve_dedupe
 
 #: Pointer-jump steps charged per shortcut: one jump and the fixpoint test.
 SHORTCUT_STEPS = 2
@@ -480,8 +482,6 @@ def coarsen_level0_terms(n0: int, e: int, rs) -> tuple:
     t.ew("relabel", n, _I32, 0)  # .sum()
     if not cfg.fused:
         return t.terms, "coarsen.level0"
-    from repro_torch.solve.spec import resolve_dedupe  # lazy: layer cycle
-
     if resolve_dedupe(cfg.dedupe, rs.backend) == "host":
         # filter_level_callback: the level's arrays to the host and back
         t.add("dedupe", pad * (2 * _I32 + _F32 + _I32 + _B) * 2 + n * _I32)

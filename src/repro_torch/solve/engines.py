@@ -8,13 +8,17 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.coarsen.dist import DistCoarsenMSF
 from repro_torch.coarsen.engine import CoarsenMSF
 from repro_torch.core.msf import run_flat
+from repro_torch.core.msf_dist import build_dist_driver
 from repro_torch.graphs.structures import host_array
 from repro_torch.obs.trace import trace_span
 from repro_torch.solve.planner import register_engine
 from repro_torch.solve.report import SolveReport, report_from_msf_result
 from repro_torch.solve.spec import ResolvedSpec, _stream_n
+from repro_torch.stream.engine import StreamEngine
+from repro_torch.stream.service import QueryService
 
 
 class _FlatEngine:
@@ -85,13 +89,9 @@ class _DistEngine:
         s = rs.spec
         self._coarsen = rs.coarsen is not None
         if self._coarsen:
-            from repro_torch.coarsen.dist import DistCoarsenMSF
-
             self.driver = DistCoarsenMSF(part, mesh, rs.coarsen, row_axis=s.row_axis,
                                          col_axis=s.col_axis, max_iters=s.max_iters)
         else:
-            from repro_torch.core.msf_dist import build_dist_driver
-
             self.driver = build_dist_driver(
                 part, mesh, row_axis=s.row_axis, col_axis=s.col_axis, shortcut=rs.shortcut,
                 capacity=s.capacity, max_iters=s.max_iters, pack=bool(rs.pack),
@@ -121,9 +121,6 @@ register_engine("dist", _build_dist, cacheable=True)
 
 class _StreamPlanEngine:
     def __init__(self, n: int, rs: ResolvedSpec):
-        # lazy: repro_torch.stream.engine imports this package's spec module
-        from repro_torch.stream.engine import StreamEngine
-
         s = rs.spec
         self.engine = StreamEngine(
             n,
@@ -199,8 +196,6 @@ class _StreamPlanEngine:
         this engine's snapshot store — the read seam a serving tier
         batches through."""
         if self._service is None:
-            from repro_torch.stream.service import QueryService
-
             self._service = QueryService(self.engine.snapshots)
         return self._service
 

@@ -19,7 +19,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.graphs.structures import host_array
+from repro_torch.graphs.structures import _canonicalize, host_array
 from repro_torch.obs.trace import NOOP_SPAN, host_sync
 
 
@@ -47,16 +47,6 @@ class SolveReport(NamedTuple):
         pointer-jumping the vector to its fixpoint)."""
         return int(np.count_nonzero(_canonicalize(self.parent)
                                     == np.arange(len(self.parent))))
-
-
-def _canonicalize(parent) -> np.ndarray:
-    """Pointer-jump a parent vector to its root fixpoint (host-side)."""
-    p = host_array(parent)
-    while True:
-        gp = p[p]
-        if np.array_equal(gp, p):
-            return p
-        p = gp
 
 
 def _pinned(t: torch.Tensor) -> torch.Tensor:

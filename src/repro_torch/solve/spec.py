@@ -5,18 +5,21 @@ run (``mode``) and *how* (backend knobs). It has the fields and static
 validation of ``repro.solve.spec.SolveSpec``; every built-in mode has an
 engine (``repro_torch.solve.engines``).
 
-This module is also the single home of the backend auto-detect rules.
-Where the JAX package keys on ``jax.default_backend() == "tpu"``, the
-port keys on the target graph's device type being ``"cuda"``:
+:meth:`SolveSpec.resolve` turns the auto knobs into concrete choices with
+rules that live in the layers that use them, so that no lower layer
+imports this one. Where the JAX package keys on
+``jax.default_backend() == "tpu"``, the port keys on the target graph's
+device type being ``"cuda"``:
 
-- :func:`auto_pack` / :func:`weights_packable` — the pack32 regime test
-  (integral weights in [0, 255], 24-bit indices);
-- :func:`resolve_dedupe` — ``dedupe="auto"`` → device on CUDA, host
-  elsewhere;
-- :func:`resolve_flat_segmin` — segment-min selection for flat
-  (unsorted-segment) reductions, via ``repro_torch.kernels.ops``;
-- :func:`resolve_level_segmins` — the coarsening levels' hook and dedupe
-  segment-mins.
+- :func:`~repro_torch.core.semiring.auto_pack` /
+  :func:`~repro_torch.core.semiring.weights_packable` — the pack32 regime
+  test (integral weights in [0, 255], 24-bit indices), importable here
+  under the reference's path;
+- :func:`~repro_torch.coarsen.config.resolve_dedupe` — ``dedupe="auto"``
+  → device on CUDA, host elsewhere;
+- :func:`~repro_torch.kernels.ops.packed_segmin` — the flat hook loop's
+  packed segment-min, by request alone (the wrapper it gives looks at
+  the device).
 """
 from __future__ import annotations
 
@@ -30,9 +33,14 @@ from repro_torch.coarsen.config import (
     DEDUPE_BACKENDS,
     SEGMIN_BACKENDS,
     CoarsenConfig,
+    resolve_dedupe,
 )
-from repro_torch.core.semiring import PACK_IDX_MASK
-from repro_torch.obs.trace import host_sync
+from repro_torch.core.semiring import (  # noqa: F401 — weights_packable: the reference's path
+    PACK_IDX_MASK,
+    auto_pack,
+    weights_packable,
+)
+from repro_torch.kernels import ops
 
 MODES = ("flat", "coarsen", "dist", "stream")
 OBS_MODES = ("off", "metrics", "trace")
@@ -42,85 +50,6 @@ EXTRA_MODES: set = set()
 VARIANTS = ("complete", "paper", "pairwise")
 FLAT_SHORTCUTS = (None, "complete", "csp", "os")
 DIST_SHORTCUTS = (None, "csp", "os", "baseline")
-
-
-# ---------------------------------------------------------------------------
-# backend auto-detect rules
-# ---------------------------------------------------------------------------
-
-def weights_packable(w) -> bool:
-    """The pack32 weight regime: integral values in [0, 255] (paper §VII)."""
-    w = torch.as_tensor(w).to(torch.float64)
-    if w.numel() == 0:
-        return True
-    ok = torch.all(w == torch.floor(w)) & (w.min() >= 0) & (w.max() <= 255)
-    host_sync("auto_pack.weights")
-    return bool(ok)
-
-
-def auto_pack(w, eid, valid, e_capacity: int) -> bool:
-    """pack32 applies when weights are integral in [0, 255] and both the
-    global eids and the per-level position indices fit 24 bits strictly."""
-    if e_capacity >= PACK_IDX_MASK:
-        return False
-    valid = torch.as_tensor(valid).to(torch.bool)
-    host_sync("auto_pack.mask")
-    wv = torch.as_tensor(w)[valid]
-    if wv.numel() == 0:
-        return True
-    if not weights_packable(wv):
-        return False
-    host_sync("auto_pack.mask")
-    host_sync("auto_pack.eid_max")
-    return int(torch.as_tensor(eid)[valid].max()) < PACK_IDX_MASK
-
-
-def resolve_dedupe(dedupe: str, backend: str) -> str:
-    """``dedupe="auto"`` → the device pipeline on CUDA, the numpy lexsort
-    twin elsewhere."""
-    if dedupe != "auto":
-        return dedupe
-    return "device" if backend == "cuda" else "host"
-
-
-def resolve_flat_segmin(segmin: str | None, pack: bool, device_type: str = "cuda"):
-    """Packed segment-min callable for a *flat* reduction site (the MSF
-    hook loop — unsorted segment ids), or ``None`` when ``pack`` is off.
-    "sorted" degrades to "auto"; "auto" picks the CUDA kernel on a CUDA
-    graph and the plain version elsewhere."""
-    if not pack:
-        return None
-    from repro_torch.kernels.ops import flat_segmin_backend, make_packed_segmin
-
-    return make_packed_segmin(flat_segmin_backend(segmin) or "auto", device_type)
-
-
-def resolve_level_segmins(segmin: str | None, use_pack: bool, device_type: str = "cuda"):
-    """(hook segmin, dedupe segmin) callables for the coarsening levels, or
-    ``(None, None)`` when ``use_pack`` is off.
-
-    The hook reduction (``coarsen.contract``) sees *unsorted* segment ids
-    (roots of the current parent vector), so it resolves as a flat site:
-    "sorted" degrades to "auto". The dedupe's ids are the boundary prefix
-    sum over sorted pair keys: ``kernels.ops.dedupe_segmin_backend``.
-
-    One deliberate difference from ``repro.solve.spec.resolve_level_segmins``:
-    for ``segmin`` None the reference gives the hook plain XLA
-    ``segment_min``, even on a TPU. Here None/"auto" gives the hook the flat
-    CUDA kernel on a CUDA graph (the plain version elsewhere). Every edge
-    that is not outgoing carries the identity key and is scattered into its
-    root's slot; the plain ``scatter_reduce_`` serialises on those atomics,
-    while the kernel skips identity keys. The reduction is the same, so the
-    results are identical.
-    """
-    if not use_pack:
-        return None, None
-    from repro_torch.kernels.ops import dedupe_segmin_backend
-
-    return (
-        resolve_flat_segmin(segmin, True, device_type),
-        dedupe_segmin_backend(segmin, device_type),
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +226,7 @@ class SolveSpec:
             backend=backend,
             pack=pack,
             shortcut=shortcut,
-            segmin_flat=resolve_flat_segmin(eff.segmin, bool(pack), backend),
+            segmin_flat=ops.packed_segmin(eff.segmin, "flat") if pack else None,
             dedupe=resolve_dedupe(eff.dedupe, backend),
             coarsen=coarsen,
         )

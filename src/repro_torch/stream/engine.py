@@ -55,10 +55,14 @@ from repro_torch import obs
 from repro_torch.coarsen.engine import CoarsenMSF
 from repro_torch.coarsen.config import CoarsenConfig
 from repro_torch.core.msf import flat_msf
-from repro_torch.core.semiring import PACK_IDX_MASK
-from repro_torch.graphs.structures import Graph, edge_keys, from_arrays, resolve_device
-from repro_torch.solve.report import _canonicalize
-from repro_torch.solve.spec import weights_packable
+from repro_torch.core.semiring import PACK_IDX_MASK, weights_packable
+from repro_torch.graphs.structures import (
+    Graph,
+    _canonicalize,
+    edge_keys,
+    from_arrays,
+    resolve_device,
+)
 from repro_torch.stream import delta
 from repro_torch.stream.service import next_pow2
 from repro_torch.stream.snapshot import SnapshotStore, make_snapshot
@@ -130,7 +134,7 @@ class DeleteStats(NamedTuple):
 class StreamEngine:
     """Incremental MSF over an undirected edge stream.
 
-    This is the engine behind ``repro_torch.solve``'s ``mode="stream"``
+    This is the engine behind the solve package's ``mode="stream"``
     plans (``plan(n, SolveSpec(mode="stream")).update/query/...``); the
     :class:`StreamingMSF` name below is its deprecated direct-construction
     shim.
@@ -748,7 +752,7 @@ class StreamEngine:
         """Track packability and (if adaptive) resize the padded batch
         slots by powers of two off the observed batch sizes."""
         if pb.count:
-            # The pack32 regime test lives in repro_torch.solve.spec; here
+            # The pack32 regime test of the planner (core.semiring); here
             # it is a running conjunction over the insert stream.
             ok = weights_packable(pb.w)
             if not ok and self._pack is True:
@@ -934,9 +938,8 @@ class StreamingMSF(StreamEngine):
     """Deprecated direct-construction shim over :class:`StreamEngine`.
 
     .. deprecated::
-        Use the declarative API instead::
+        Use the declarative API of the solve package instead::
 
-            from repro_torch.solve import SolveSpec, plan
             p = plan(n, SolveSpec(mode="stream", batch_capacity=1024))
             p.update(u, v, w)       # -> SolveReport
             p.query(qu, qv)         # -> bool [k]
@@ -947,7 +950,7 @@ class StreamingMSF(StreamEngine):
 
     def __init__(self, *args, **kwargs):
         warnings.warn(
-            "StreamingMSF is deprecated; use repro_torch.solve.plan(n, "
+            "StreamingMSF is deprecated; use the solve package's plan(n, "
             "SolveSpec(mode='stream', ...)) and its update()/query() "
             "surfaces instead",
             DeprecationWarning,

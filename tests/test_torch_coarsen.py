@@ -19,7 +19,7 @@ from repro_torch import coarsen as tco  # noqa: E402
 from repro_torch import solve as tsolve  # noqa: E402
 from repro_torch.coarsen.relabel import canonical_minvertex_labels as t_canon  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.solve.spec import resolve_level_segmins  # noqa: E402
+from repro_torch.coarsen.engine import _level_setup  # noqa: E402
 
 
 def _t(a):
@@ -176,7 +176,8 @@ def test_run_levels_match_reference_level_by_level(dedupe, fused):
     assert got.residual.n == want.residual.n
     be = got.backends
     assert (be.pack, be.dedupe) == (True, dedupe)
-    assert be.hook is ref.segment_min_flat_ref and be.dedupe_segmin is ref.segment_min_sorted_ref
+    # the kernels' wrappers, which run the plain versions on the CPU
+    assert be.hook is ops.segment_min_flat and be.dedupe_segmin is ops.segment_min_sorted
 
 
 @pytest.mark.parametrize("case", ["edgeless", "below_cutoff"])
@@ -208,17 +209,28 @@ def test_coarsen_msf_one_shot_matches_reference():
 
 
 def test_level_segmin_resolution():
+    """The levels' (hook, dedupe) segment-mins, selected by request alone
+    (the wrappers look at the device): the flat and sorted kernels'
+    wrappers for every request but "torch" — the hook takes the flat
+    kernel even for None/"auto", unlike the reference — both plain
+    versions for "torch", nothing without pack32."""
     flat, srt = ops.segment_min_flat, ops.segment_min_sorted
-    # on a CUDA graph the hook takes the flat kernel even for None/"auto"
+    g = cpu_graph(random_graph(30, 90, seed=2))
+
+    def levels(req, pack=True, segmins=None):
+        be = _level_setup(g, tco.CoarsenConfig(segmin=req, pack=pack), segmins)[3]
+        return be.hook, be.dedupe_segmin
+
     for req in (None, "auto", "cuda", "sorted"):
-        assert resolve_level_segmins(req, True, "cuda") == (flat, srt)
-    assert resolve_level_segmins("torch", True, "cuda") == (
-        ref.segment_min_flat_ref, ref.segment_min_sorted_ref)
-    assert resolve_level_segmins(None, True, "cpu") == (
-        ref.segment_min_flat_ref, ref.segment_min_sorted_ref)
-    assert resolve_level_segmins("cuda", True, "cpu") == (flat, srt)
-    assert resolve_level_segmins("sorted", True, "cpu") == (ref.segment_min_flat_ref, srt)
-    assert resolve_level_segmins("cuda", False, "cuda") == (None, None)
+        assert levels(req) == (flat, srt)
+    assert levels("torch") == (ref.segment_min_flat_ref, ref.segment_min_sorted_ref)
+    assert levels("cuda", False) == (None, None)
+    assert levels(None, segmins=(srt, flat)) == (srt, flat)  # a resolved pair as given
+    p = tsolve.plan(g, tsolve.SolveSpec(mode="coarsen", coarsen=tco.CoarsenConfig(cutoff=8)))
+    p.solve()
+    be = p.engine.last_backends
+    assert (be.pack, be.hook, be.dedupe_segmin, be.dedupe) == (True, flat, srt, "host")
+    assert flat.launches == srt.launches == 0  # the CPU path launches nothing
 
 
 def test_coarsen_plan_is_cached_and_registered():

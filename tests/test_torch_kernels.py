@@ -13,10 +13,15 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from _torch_util import cpu_graph  # noqa: E402
 from repro.core.semiring import pack32 as jax_pack32  # noqa: E402
+from repro.graphs import random_graph  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.coarsen.config import SEGMIN_BACKENDS, CoarsenConfig  # noqa: E402
+from repro_torch.coarsen.engine import _level_setup  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.solve import SolveSpec  # noqa: E402
 
 UMAX = 0xFFFFFFFF
 
@@ -56,19 +61,73 @@ def test_segment_min_flat_matches_pallas_and_ref(n_seg, e, seg_lo, seg_hi):
 
 
 def test_plain_version_is_what_cpu_runs():
+    """On CPU tensors the wrapper runs the plain version, so the selector
+    gives the wrapper for every request but "torch", on every device."""
     keys, seg = _keys_segs(100, 1000, 3)
     k, s = torch.from_numpy(keys.astype(np.int64)), torch.from_numpy(seg)
     assert torch.equal(ops.segment_min_flat(k, s, 100), ref.segment_min_flat_ref(k, s, 100))
-    assert ops.make_packed_segmin("auto", "cpu") is ref.segment_min_flat_ref
-    assert ops.make_packed_segmin("torch", "cuda") is ref.segment_min_flat_ref
-    assert ops.make_packed_segmin("auto", "cuda") is ops.segment_min_flat
-    assert ops.make_packed_segmin("cuda", "cpu") is ops.segment_min_flat
-    assert ops.flat_segmin_backend("sorted") == "auto"
-    assert ops.flat_segmin_backend("cuda") == "cuda"
+    for req in (None, "auto", "cuda", "sorted"):  # "sorted" degrades at a flat site
+        assert ops.packed_segmin(req, "flat") is ops.segment_min_flat
+    assert ops.packed_segmin("torch", "flat") is ref.segment_min_flat_ref
     with pytest.raises(ValueError):
-        ops.make_packed_segmin("pallas")
-    assert ops.make_packed_segmin("sorted") is ops.segment_min_sorted
-    assert ops.make_packed_segmin("sorted", "cpu") is ops.segment_min_sorted
+        ops.packed_segmin("pallas", "flat")
+    assert ops.packed_segmin("sorted", "dedupe") is ops.segment_min_sorted
+    fn = ops.packed_segmin(None, "flat")
+    assert torch.equal(fn(k, s, 100), ref.segment_min_flat_ref(k, s, 100))
+    assert ops.segment_min_flat.launches == 0  # the CPU path launches nothing
+
+
+# The mapping kept from when the selection keyed on the graph's device:
+# per (request, site) with pack32 on, the callable a CUDA graph got and the
+# one a CPU graph got. With pack32 off no site selects anything.
+SEGMIN_TABLE = {
+    (None, "flat"): ("segment_min_flat", "segment_min_flat_ref"),
+    ("auto", "flat"): ("segment_min_flat", "segment_min_flat_ref"),
+    ("torch", "flat"): ("segment_min_flat_ref", "segment_min_flat_ref"),
+    ("cuda", "flat"): ("segment_min_flat", "segment_min_flat"),
+    ("sorted", "flat"): ("segment_min_flat", "segment_min_flat_ref"),
+    (None, "dedupe"): ("segment_min_sorted", "segment_min_sorted_ref"),
+    ("auto", "dedupe"): ("segment_min_sorted", "segment_min_sorted_ref"),
+    ("torch", "dedupe"): ("segment_min_sorted_ref", "segment_min_sorted_ref"),
+    ("cuda", "dedupe"): ("segment_min_sorted", "segment_min_sorted"),
+    ("sorted", "dedupe"): ("segment_min_sorted", "segment_min_sorted"),
+}
+
+
+def _site_choice(req, site, pack):
+    """What the solve's flat site (``SolveSpec.resolve``) and a coarsening
+    level's hook and dedupe sites (``coarsen.engine._level_setup``) select
+    on a CPU graph."""
+    g = cpu_graph(random_graph(16, 40, seed=1))
+    be = _level_setup(g, CoarsenConfig(segmin=req, pack=pack), None)[3]
+    if site == "dedupe":
+        return be.dedupe_segmin
+    flat = SolveSpec(mode="coarsen", segmin=req, pack=pack).resolve(g).segmin_flat
+    assert flat is be.hook
+    return flat
+
+
+@pytest.mark.parametrize("pack", [True, False], ids=["pack", "nopack"])
+@pytest.mark.parametrize("site", ["flat", "dedupe"])
+@pytest.mark.parametrize("req", [None, "auto", "torch", "cuda", "sorted"])
+def test_segmin_selection_table(req, site, pack):
+    """Every request × site × pack32: on a CUDA graph the selector gives
+    the very callable the table names; on CPU tensors its output is bit
+    for bit that of the table's CPU choice, on one fixed sorted case."""
+    assert req in SEGMIN_BACKENDS and len(SEGMIN_TABLE) == 2 * len(SEGMIN_BACKENDS)
+    got = _site_choice(req, site, pack)
+    if not pack:
+        assert got is None
+        return
+    assert got is ops.packed_segmin(req, site)
+    card, cpu = (getattr(ops, name, None) or getattr(ref, name)
+                 for name in SEGMIN_TABLE[req, site])
+    assert got is card
+    keys, seg = _keys_segs(64, 900, 11)
+    k = torch.from_numpy(keys.astype(np.int64))
+    s = torch.from_numpy(np.sort(seg))
+    want = cpu(k, s, 64)
+    assert want.dtype == torch.int64 and torch.equal(got(k, s, 64), want)
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -187,15 +246,17 @@ def test_segment_min_sorted_matches_pallas(n_seg, seg):
 
 
 def test_dedupe_segmin_backend_resolution():
-    for req in ("sorted", "cuda"):
-        for dev in ("cpu", "cuda"):
-            assert ops.dedupe_segmin_backend(req, dev) is ops.segment_min_sorted
-    assert ops.dedupe_segmin_backend("torch", "cuda") is ref.segment_min_sorted_ref
-    for req in (None, "auto"):
-        assert ops.dedupe_segmin_backend(req, "cuda") is ops.segment_min_sorted
-        assert ops.dedupe_segmin_backend(req, "cpu") is ref.segment_min_sorted_ref
+    """The dedupe site: the sorted kernel's wrapper for every request but
+    "torch", which gives its plain version; an unknown request raises."""
+    for req in (None, "auto", "sorted", "cuda"):
+        assert ops.packed_segmin(req, "dedupe") is ops.segment_min_sorted
+    assert ops.packed_segmin("torch", "dedupe") is ref.segment_min_sorted_ref
     with pytest.raises(ValueError):
-        ops.dedupe_segmin_backend("pallas")
+        ops.packed_segmin("pallas", "dedupe")
+    keys, seg = _keys_segs(50, 400, 5)
+    k, s = torch.from_numpy(keys.astype(np.int64)), torch.from_numpy(np.sort(seg))
+    assert torch.equal(ops.packed_segmin(None, "dedupe")(k, s, 50),
+                       ref.segment_min_sorted_ref(k, s, 50))
 
 
 def test_sorted_wrapper_rejects_bad_inputs():

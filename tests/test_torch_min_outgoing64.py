@@ -2,10 +2,11 @@
 (``kernels.ops.min_outgoing_flat64``, ``csrc/min_outgoing_flat64.cu``).
 
 On the CPU: its plain twin (``kernels.ref.min_outgoing_flat64_ref``)
-against ``semiring.segment_argmin``'s route, ``min_outgoing_coo``, which
-stays the CPU route unchanged. On a card (marker ``gpu``; skipped without
-one or without ``nvcc``): the kernel against the twin, and whole solves
-on the card against the same solves on the CPU.
+against ``semiring.segment_argmin``, and ``min_outgoing_coo``'s root form
+running the twin through the wrapper, as it runs the kernel on the card.
+On a card (marker ``gpu``; skipped without one or without ``nvcc``): the
+kernel against the twin, and whole solves on the card against the same
+solves on the CPU.
 """
 import pytest
 
@@ -140,18 +141,33 @@ def test_twin_matches_segment_argmin(case, seed):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_cpu_route_is_segment_argmin(case):
-    """On the CPU ``min_outgoing_coo`` runs ``segment_argmin`` as before,
-    bit for bit, zero signs included, and returns the bool mask."""
+def test_cpu_route_is_segment_argmin(case, monkeypatch):
+    """On the CPU ``min_outgoing_coo``'s root form calls the wrapper, which
+    runs the twin: ``segment_argmin``'s answer but for a zero weight's
+    sign, which comes out +0.0, and the 0-d count of the outgoing edges in
+    place of their mask."""
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return wrapper(*args, **kw)
+
+    wrapper = ops.min_outgoing_flat64
+    monkeypatch.setattr(ops, "min_outgoing_flat64", spy)
     p, src, dst, w, eid, valid, n = _case(case, 3)
     want, outgoing = _argmin_route(p, src, dst, w, eid, valid, n)
-    got, mask = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="root",
-                                 return_outgoing=True)
-    assert torch.equal(got.w.view(torch.int32), want.w.view(torch.int32))
-    assert torch.equal(got.eid, want.eid) and torch.equal(got.payload[0], want.payload[0])
-    assert mask.dtype == torch.bool and torch.equal(mask, outgoing)
+    twin, twin_count = ref.min_outgoing_flat64_ref(p, src, dst, w, eid, valid, n)
+    got, count = min_outgoing_coo(p, src, dst, w, eid, valid, n, segment="root",
+                                  return_outgoing=True)
+    for a, b in zip((got.w, got.eid, got.payload[0]), (twin.w, twin.eid, twin.payload[0])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))  # bit for bit
+    _same(got, want)
+    assert not torch.signbit(got.w[got.w == 0]).any()
+    assert count.dim() == 0 and count.dtype == torch.int64
+    assert int(count) == int(twin_count) == int(count_true(outgoing))
     plain = min_outgoing_coo(p, src, dst, w, eid, valid, n)
-    assert torch.equal(plain.w.view(torch.int32), want.w.view(torch.int32))
+    assert torch.equal(plain.w.view(torch.int32), twin.w.view(torch.int32))
+    assert calls == [{"count": True}, {"count": False}]
 
 
 def test_keys_order_as_weight_then_eid():
@@ -190,7 +206,8 @@ def test_wrapper_rejects_bad_inputs():
 def test_cost_counts_the_kernel_passes_on_the_card():
     """``flat_round_terms`` of an unpacked plan resolved for the card counts
     the kernel's fill, reduce, payload and decode, not the three scatters
-    the CPU route still runs; both read shapes only."""
+    of ``segment_argmin`` that a plan resolved for the CPU is charged; both
+    read shapes only."""
     from repro_torch.graphs.generators import random_graph
     from repro_torch.solve import SolveSpec
     from repro_torch.solve import cost as tcost

@@ -14,7 +14,7 @@ from repro.graphs import from_edges, grid_road_graph, random_graph  # noqa: E402
 from repro.graphs.generators import components_graph  # noqa: E402
 from repro_torch import solve as tsolve  # noqa: E402
 from repro_torch.graphs.structures import nx_free_msf_weight  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from test_msf_properties import _FIXED_CASES, _fixed_graph  # noqa: E402
 
 _GENERATED = {
@@ -87,11 +87,12 @@ def test_resolve_keys_on_device_type():
     g = cpu_graph(random_graph(20, 50, seed=1))
     rs = tsolve.SolveSpec().resolve(g)
     assert (rs.backend, rs.pack, rs.dedupe) == ("cpu", True, "host")
-    assert rs.segmin_flat is ops.make_packed_segmin("torch")
+    assert rs.segmin_flat is ops.segment_min_flat  # it runs the plain version on the CPU
     rs = tsolve.SolveSpec().resolve(g, backend="cuda")
     assert rs.segmin_flat is ops.segment_min_flat and rs.dedupe == "device"
-    assert tsolve.SolveSpec(segmin="torch").resolve(g, backend="cuda").segmin_flat is (
-        ops.make_packed_segmin("torch"))
+    for backend in ("cpu", "cuda"):  # the device type picks the dedupe, not the segmin
+        assert tsolve.SolveSpec(segmin="torch").resolve(g, backend=backend).segmin_flat is (
+            ref.segment_min_flat_ref)
     assert tsolve.SolveSpec(pack=False).resolve(g).segmin_flat is None
     assert tsolve.SolveSpec().resolve(None).backend == "cuda"  # the port's default device
     assert tsolve.SolveSpec().resolve(None).pack is False
