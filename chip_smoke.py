@@ -241,6 +241,18 @@ Phases:
      time of its reduce and payload passes (and the fill and decode)
      beside the round's bound (17 B an edge, 16 B a vertex), the replaced
      route's device time and, on R-MAT, the plain twin's; the median solve;
+  6p. the same kernel's undirected mode in the coarsen levels (run after 6o;
+     ``python3 chip_smoke.py --phase 6p`` runs the build and this phase
+     alone): ptxas's registers and spills of each instantiation of the
+     kernel, directed and undirected; on the g500-s24.coarsen cell's graph
+     (made as msfbench makes it), a coarsen solve launches it once per
+     level round and the flat kernel once per residual round; on each
+     level round's arrays and parent vector it equals the four scatter-mins
+     it replaced (weights up to the sign of zero, eids exactly, payloads
+     wherever the weight is finite) and its in-kernel count the mask's;
+     per round the device time of its reduce and payload passes beside the
+     round's bound (17 B an edge, 16 B a vertex) and the replaced route's
+     device time; the median solve;
   7. times: each kernel (device time from torch.profiler, and CUDA
      events around back-to-back calls) on the inputs of its main path
      (segment_min_flat: every AS round of the R-MAT and the grid flat
@@ -331,6 +343,8 @@ REPORT_PROBE_BYTES = 1 << 27
 # Phase 6o: the 64-bit min-outgoing kernel per AS round on phase 5's graph
 # made unpacked (weights + 0.5) and on this cell's own graph.
 FLAT64_CELL = "g500-s25.solve"
+# Phase 6p: the undirected mode per coarsen level round on this cell's graph.
+UND64_CELL = "g500-s24.coarsen"
 # Phase 6j: the 2x2 grid as four processes on the one card, over gloo.
 DIST_GRID = (2, 2)
 DIST_JOIN_TIMEOUT_S = 300
@@ -412,7 +426,7 @@ LM_CARDS_SERVE = (
 )
 LM_CARDS_TRAIN = ("qwen2-7b", (2, 4_096), 3)
 KERNEL_NAMES = ("segment_min_flat", "segment_min_sorted", "multilinear_dense",
-                "segment_min_bucketed", "min_outgoing_flat64")
+                "segment_min_bucketed", "min_outgoing_flat64", "min_outgoing_und64")
 # The Fig-8 graphs of benchmarks/bench_multilinear.py, small enough for a
 # dense n x n float32 adjacency (1 GiB and 64 MiB).
 DENSE_GRAPHS = {"rmat_s14_ef8": dict(scale=14, edge_factor=8, seed=1),
@@ -2298,7 +2312,8 @@ def tune_path(graphs: dict) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         res = T.tune(g, mode, db=db, space="full", timer=counting_timer(mode))
         launches[f"tune {mode} {label}"] = {
-            **read_counts(), "min_outgoing_flat64": ops.min_outgoing_flat64.launches}
+            **read_counts(), "min_outgoing_flat64": ops.min_outgoing_flat64.launches,
+            "min_outgoing_und64": ops.min_outgoing_und64.launches}
         for r in res.ranking:
             check(r.spec.segmin != T.PLAIN_SEGMIN
                   and r.spec.resolve(g).segmin_flat is not ref.segment_min_flat_ref,
@@ -4625,6 +4640,223 @@ def flat64_path(g_rmat, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6p: the undirected mode of the 64-bit min-outgoing kernel
+# ---------------------------------------------------------------------------
+
+def und_scatter_reduce(lo, hi, w, eid, valid, n: int, eid_capacity: int):
+    """The route the undirected mode replaced in ``make_und_reduce`` (one
+    device, no pack32): ``reduce_fn(p) -> EdgeMin`` by four scatter-mins
+    over every edge (the weight by ``p[lo]`` and by ``p[hi]``, then the eid
+    of the edges that hold it), the payload gathered back through an eid
+    → position table built once per level. At a root whose least weight is
+    +inf its payload is IMAX, which the hook never reads."""
+    import torch
+
+    from repro_torch.core.semiring import IMAX, INF, EdgeMin, segment_min
+
+    dev = lo.device
+    e = lo.shape[0]
+    lo_l, hi_l = lo.long(), hi.long()
+    keep = valid & (eid >= 0) & (eid < eid_capacity)
+    pos_of_eid = torch.full((eid_capacity + 1,), -1, dtype=torch.int32, device=dev)
+    pos_of_eid[torch.where(keep, eid, eid_capacity).long()] = torch.arange(
+        e, dtype=torch.int32, device=dev)
+    pos_of_eid = pos_of_eid[:eid_capacity]
+    i_n = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def reduce_fn(p):
+        plo, phi = p[lo_l], p[hi_l]
+        out = (plo != phi) & valid
+        wm = torch.where(out, w, INF)
+        minw = torch.minimum(segment_min(wm, plo, n, INF), segment_min(wm, phi, n, INF))
+        on1 = out & (wm == minw[plo.long()])
+        on2 = out & (wm == minw[phi.long()])
+        mineid = torch.minimum(
+            segment_min(torch.where(on1, eid, IMAX), plo, n, IMAX),
+            segment_min(torch.where(on2, eid, IMAX), phi, n, IMAX),
+        )
+        empty = minw == INF
+        if e == 0:
+            return EdgeMin(w=minw, eid=mineid,
+                           payload=(torch.full((n,), IMAX, dtype=torch.int32, device=dev),))
+        pos = pos_of_eid[mineid.clamp(0, eid_capacity - 1).long()]
+        safe = pos.clamp(0, e - 1).long()
+        plo_w, phi_w = p[lo_l[safe]], p[hi_l[safe]]
+        pd = torch.where(plo_w == i_n, phi_w, plo_w)
+        return EdgeMin(w=minw, eid=mineid,
+                       payload=(torch.where((pos >= 0) & ~empty, pd, IMAX),))
+
+    return reduce_fn
+
+
+def und_scatter_route(p, lo, hi, w, eid, valid, n: int):
+    """One call of :func:`und_scatter_reduce` with the eid bound read off
+    ``eid``: ``(EdgeMin, None)``, as ``ops.min_outgoing_und64`` returns."""
+    live = eid[valid]
+    cap = max(8, 1 << int(live.max()).bit_length()) if live.numel() else 8
+    return und_scatter_reduce(lo, hi, w, eid, valid, n, cap)(p), None
+
+
+def same_und_minima(got, want) -> bool:
+    """The kernel's per-root minima against :func:`und_scatter_reduce`'s:
+    weights with zeros' signs made equal, eids exactly, payloads wherever
+    the weight is finite (the replaced route left IMAX at a root whose
+    least weight is +inf)."""
+    import torch
+
+    from repro_torch.core.semiring import IMAX
+
+    pay = torch.where(got.w < float("inf"), got.payload[0], IMAX)
+    return (torch.equal((got.w + 0.0).view(torch.int32), (want.w + 0.0).view(torch.int32))
+            and torch.equal(got.eid, want.eid) and torch.equal(pay, want.payload[0]))
+
+
+def und64_round_inputs(g, spec_kw: dict) -> tuple:
+    """``(rounds, report, launches)`` of one coarsen solve of ``g``: the
+    arguments of each ``ops.min_outgoing_und64`` call (the level's arrays
+    and a copy of the parent vector), the solve's report and the launches
+    of both modes of the kernel."""
+    import types
+
+    from repro_torch.coarsen import contract
+    from repro_torch.kernels import ops
+    from repro_torch.solve import SolveSpec, plan
+
+    rounds = []
+
+    def recorder(p, lo, hi, w, eid, valid, n, **kw):
+        rounds.append((p.clone(), lo, hi, w, eid, valid, n))
+        return ops.min_outgoing_und64(p, lo, hi, w, eid, valid, n, **kw)
+
+    before = (ops.min_outgoing_und64.launches, ops.min_outgoing_flat64.launches)
+    # the levels reach the wrapper as contract.ops.min_outgoing_und64; the
+    # wrapper itself stays in place, with its launch counter
+    contract.ops = types.SimpleNamespace(min_outgoing_und64=recorder)
+    try:
+        p = plan(g, SolveSpec(**spec_kw))
+        rep = p.solve()
+    finally:
+        contract.ops = ops
+    launches = {"und": ops.min_outgoing_und64.launches - before[0],
+                "flat": ops.min_outgoing_flat64.launches - before[1],
+                "levels": len(rep.levels),
+                "rounds_per_level": p.resolved.coarsen.rounds_per_level}
+    return rounds, rep, launches
+
+
+def und64_rounds(label: str, rounds: list) -> list:
+    """Phase 6p: ``ops.min_outgoing_und64`` on each recorded level round,
+    checked against the route it replaced (:func:`same_und_minima`; the
+    in-kernel count against ``count_true`` of the mask), then timed: the
+    device time of each of its four kernels (torch.profiler, by name), the
+    call (CUDA events), the round's bound (:func:`flat64_bound_bytes`) and
+    the replaced route's device time (one call; its eid → position table
+    is built once per level and not timed)."""
+    import torch
+
+    from repro_torch.core.msf import count_true
+    from repro_torch.kernels import ops
+
+    rows = []
+    route = {}
+    for k, (p, lo, hi, w, eid, valid, n) in enumerate(rounds):
+        key = lo.data_ptr(), lo.numel()
+        if key not in route:  # a new level
+            route.clear()
+            live = eid[valid]
+            cap = max(8, 1 << int(live.max()).bit_length()) if live.numel() else 8
+            route[key] = und_scatter_reduce(lo, hi, w, eid, valid, n, cap)
+        call = partial(ops.min_outgoing_und64, p, lo, hi, w, eid, valid, n)
+        got, count = call(count=True)
+        want = route[key](p)
+        outgoing = int(count_true((p[lo] != p[hi]) & valid))
+        check(same_und_minima(got, want),
+              f"6p {label} round {k}: the kernel differs from the scatter route")
+        check(int(count) == outgoing,
+              f"6p {label} round {k}: in-kernel count {int(count)} != {outgoing}")
+        del got, want, count
+        for _ in range(2):
+            call()
+        reps = 5
+        by_name = {}
+        for ev in device_rows(call, reps):
+            name = next((kn for kn in ("fill", "reduce", "payload", "decode")
+                         if f"{kn}_kernel" in ev.key), "other")
+            by_name[name] = by_name.get(name, 0.0) + ev.self_device_time_total / 1e3 / reps
+        bytes_ = flat64_bound_bytes(lo.numel(), n)
+        row = {"round": k, "E": lo.numel(), "n": n, "outgoing": outgoing,
+               "outgoing_share": outgoing / max(1, lo.numel()),
+               **{f"{kn}_ms": by_name.get(kn, 0.0) for kn in ("fill", "reduce", "payload",
+                                                              "decode")},
+               "kernel_ms": sum(by_name.values()), "kernel_call_ms": time_ms(call, reps, 1),
+               "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bytes": bytes_,
+               "scatter_route_ms": device_ms(partial(route[key], p), reps=1, warmup=0)}
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        print(f"  {label} round {k}: E {row['E']}, n {n}, outgoing {row['outgoing_share']:.4f}, "
+              f"reduce {row['reduce_ms']:.3f} + payload {row['payload_ms']:.3f} ms (kernel "
+              f"{row['kernel_ms']:.3f}, call {row['kernel_call_ms']:.3f}, bound "
+              f"{row['bound_ms']:.3f}), scatter route {row['scatter_route_ms']:.3f} ms",
+              flush=True)
+    return rows
+
+
+def ptxas_registers(log: str) -> dict:
+    """Registers and spill bytes of each entry function in an ``nvcc
+    -Xptxas -v`` report: ``{mangled name: "N registers, S spill stores,
+    L spill loads"}``."""
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            out[name] = f"{line.split('Used', 1)[1].split(',')[0].strip()}, {spill}"
+    return out
+
+
+def und64_path(smi: str) -> dict:
+    """Phase 6p on the benchmark cell :data:`UND64_CELL`'s graph: the
+    launches of one coarsen solve, the per-round rows, the median solve."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.solve import SolveSpec
+
+    log = build.library_path("min_outgoing_flat64").with_suffix(".log").read_text()
+    regs = ptxas_registers(log)
+    for name, line in regs.items():
+        print(f"  ptxas {name}: {line}", flush=True)
+    g, kw = bench_cell_graph(UND64_CELL)
+    rounds, rep, launches = und64_round_inputs(g, kw)
+    torch.cuda.synchronize()
+    level_rounds = launches["levels"] * launches["rounds_per_level"]
+    check(launches["und"] == level_rounds == len(rounds) > 0,
+          f"6p {UND64_CELL}: {launches['und']} undirected launches, {len(rounds)} recorded, "
+          f"{level_rounds} level rounds")
+    check(launches["flat"] == rep.iterations - level_rounds,
+          f"6p {UND64_CELL}: {launches['flat']} flat launches for "
+          f"{rep.iterations - level_rounds} residual rounds")
+    rows = und64_rounds(UND64_CELL, rounds)
+    del rounds
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"registers": regs, "launches": launches, "rounds": rows,
+           "solve_s": solve_times(g, {"solve": SolveSpec(**kw)})["solve_s"],
+           "peak_bytes_of_solves": torch.cuda.max_memory_allocated(),
+           "edges": g.src.numel(), "n": g.n}
+    print(json.dumps({f"min_outgoing_und64 {UND64_CELL}": out, "card": smi}), flush=True)
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def solve_times(g, specs: dict, reps: int = 3) -> dict:
     """Median end-to-end solve seconds of each spec (planning included),
     in turns after one warm-up each."""
@@ -4809,6 +5041,14 @@ def flat64_phase(g_rmat, smi) -> dict:
     return out
 
 
+def und64_phase(smi) -> dict:
+    phase("6p the undirected mode of the 64-bit min-outgoing kernel per level round")
+    t0 = time.perf_counter()
+    out = und64_path(smi)
+    print(f"  phase 6p took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def obs_only() -> None:
     """``python chip_smoke.py --phase 6h``: the build and phase 6h alone."""
     import torch
@@ -4848,6 +5088,24 @@ def flat64_only() -> None:
             print(f"  ptxas: {line.strip()}")
     flat64_phase(rmat_graph(**RMAT, device="cuda"), smi)
     print(json.dumps({"ok": True, "phases": ["6o"]}))
+
+
+def und64_only() -> None:
+    """``python chip_smoke.py --phase 6p``: the build and phase 6p alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    from repro_torch.kernels import build
+
+    phase("1 device")
+    smi = smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
+    phase("2 build")
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    build.build_all()
+    und64_phase(smi)
+    print(json.dumps({"ok": True, "phases": ["6p"]}))
 
 
 def main():
@@ -4939,6 +5197,7 @@ def main():
 
     obs_phase(g_rmat, g_grid, smi)
     flat64 = flat64_phase(g_rmat, smi)
+    und64 = und64_phase(smi)
 
     phase("6i plan cost (the tuner and the load harness run after phase 7)")
     t0 = time.perf_counter()
@@ -5187,6 +5446,27 @@ def main():
         "timed_on": "every AS round's parent vector of the default solve of R-MAT s20 ef8 "
                     "with weights + 0.5 and of the g500-s25.solve cell's graph, mean per "
                     "launch; library: the segment_argmin route it replaced; " + entry_note,
+    }, {
+        "name": "min_outgoing_und64",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/min_outgoing_flat64.cu (undirected mode)",
+        "replaces": "no TPU kernel: make_und_reduce's four scatter-mins over every edge of "
+                    "a coarsen level round (src/repro/coarsen/contract.py)",
+        "launches": und64["launches"]["und"],
+        "launches_by_path": {
+            f"coarsen {UND64_CELL}": und64["launches"]["und"],
+            **{k: v["min_outgoing_und64"] for k, v in tune_launches.items()},
+            "train": train_launches["min_outgoing_und64"],
+            "lm": lm_launches["min_outgoing_und64"],
+            "lm_sharded": lm_mesh_launches["min_outgoing_und64"],
+            "dryrun": dryrun_launches["min_outgoing_und64"]},
+        "matches_plain": True,
+        **{f: statistics.fmean(r[f] for r in und64["rounds"])
+           for f in ("reduce_ms", "payload_ms", "kernel_ms", "kernel_call_ms", "bound_ms",
+                     "scatter_route_ms")},
+        "bound_by": "bytes",
+        "timed_on": f"every level round of one coarsen solve of the {UND64_CELL} cell's graph, "
+                    "mean per launch; library: the four scatter-mins it replaced",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -5197,5 +5477,7 @@ if __name__ == "__main__":
         obs_only()
     elif sys.argv[1:] == ["--phase", "6o"]:
         flat64_only()
+    elif sys.argv[1:] == ["--phase", "6p"]:
+        und64_only()
     else:
         main()

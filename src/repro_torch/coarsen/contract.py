@@ -32,6 +32,7 @@ from repro_torch.core.semiring import (
     segment_min,
     unpack32,
 )
+from repro_torch.kernels import ops
 
 
 class ContractResult(NamedTuple):
@@ -86,15 +87,10 @@ def contract_level(src, dst, w, eid, valid, *, n: int, rounds: int = 2,
 
 def contract_level_und(lo, hi, w, eid, valid, *, n: int, eid_capacity: int,
                        rounds: int = 2, pack: bool = False, segmin=None) -> ContractResult:
-    """:func:`contract_level` over the *undirected* canonical arrays.
-
-    The ``outgoing`` mask is symmetric (p[lo] ≠ p[hi]), so one masked key
-    array serves both directions: the per-root partials are two
-    segment-mins (segments p[lo], then p[hi]) combined elementwise. The
-    hook payload (the winner's other endpoint's parent) is gathered back
-    through an eid → position table. Identical results to
-    :func:`contract_level` on the concatenated form. ``eid_capacity`` is a
-    bound with eid < eid_capacity for every valid edge.
+    """:func:`contract_level` over the *undirected* canonical arrays
+    (each round's reduction: :func:`make_und_reduce`). Identical results
+    to :func:`contract_level` on the concatenated form. ``eid_capacity``
+    is a bound with eid < eid_capacity for every valid edge.
     """
     reduce_fn = make_und_reduce(
         lo, hi, w, eid, valid, n=n, eid_capacity=eid_capacity, pack=pack, segmin=segmin,
@@ -110,14 +106,26 @@ def make_und_reduce(lo, hi, w, eid, valid, *, n: int, eid_capacity: int,
                     pack: bool = False, segmin=None, combine=None):
     """Build ``reduce_fn(p) → EdgeMin`` over the undirected canonical arrays.
 
-    ``combine`` is applied to every dense [n] partial *before* winner
-    selection: the identity (``None``) on one device; a cross-device
-    min all-reduce where the arrays are one shard of the edge set. The
-    payload lookup is masked by locality (the eid → position table marks
-    absent eids with −1), so a shard without the winning edge contributes
-    the identity. ``segmin(keys, segs, n)`` is the packed segment-min of
-    the pack32 path (``None``: the plain scatter-min).
+    The ``outgoing`` mask is symmetric (p[lo] ≠ p[hi]), so each outgoing
+    edge offers one key to both of its roots. Without pack32 on one device
+    (``combine`` None) a round is one call of
+    :func:`~repro_torch.kernels.ops.min_outgoing_und64`, which picks the
+    winner and its payload (the other endpoint's root) itself. Otherwise
+    the per-root partials are two segment-mins (segments p[lo], then
+    p[hi]) combined elementwise, and the payload is gathered back through
+    an eid → position table. ``combine`` is applied to every dense [n]
+    partial *before* winner selection: the identity (``None``) on one
+    device; a cross-device min all-reduce where the arrays are one shard of
+    the edge set. The payload lookup is masked by locality (the eid →
+    position table marks absent eids with −1), so a shard without the
+    winning edge contributes the identity. ``segmin(keys, segs, n)`` is the
+    packed segment-min of the pack32 path (``None``: the plain
+    scatter-min).
     """
+    if not pack and combine is None:
+        def reduce_fn(p):
+            return ops.min_outgoing_und64(p, lo, hi, w, eid, valid, n)[0]
+        return reduce_fn
     if combine is None:
         combine = _identity
     dev = lo.device

@@ -105,7 +105,8 @@ def _next_pow2(k: int) -> int:
 
 def _eid_capacity(eid: torch.Tensor, m0: int) -> int:
     """Pow2 bound on the global eids carried by the levels: sizes the
-    eid → position hook-payload table of ``contract_level_und``."""
+    eid → position hook-payload table of ``make_und_reduce``'s pack32
+    route."""
     if m0 == 0:
         return 8
     host_sync("coarsen.eid_capacity")

@@ -56,6 +56,19 @@
 //  4. decode: out[s] -> (w, eid) per root, (inf, IMAX) at the identity.
 // One resident wave of blocks in each pass; no edge-sized buffer.
 //
+// Undirected mode (the launch's `und` flag, a template flag of the reduce
+// and payload kernels: the directed instantiation is the code above). The
+// arrays hold each undirected edge once as (lo, hi) in place of src and
+// dst, and an edge is outgoing when valid && p[lo] != p[hi]. Its key goes
+// as one piece to p[lo] and one to p[hi]: what the directed form sends
+// over the edge's two directions, with the payload p[hi] at p[lo] and
+// p[lo] at p[hi]. The lo pieces keep the run hand-over and lane folding
+// (the coarsen levels' arrays are sorted by lo); the hi pieces go to the
+// block's bound cache and the read of out one by one. A root outside
+// [0, n) drops that side's piece. The count is of outgoing undirected
+// edges. The payload pass compares the key with out[p[lo]] and with
+// out[p[hi]].
+//
 // Bound on the card: bytes. Per round, each edge streams src, dst, valid
 // (9 B) in each of the two passes and w, eid (8 B) where outgoing, and
 // gathers p twice per pass; out is written once and read per outgoing edge.
@@ -157,11 +170,13 @@ __device__ __forceinline__ unsigned group_roots(const Group& g, const int32_t* _
 }
 
 // The group's keys: a key at each outgoing edge whose root is in range, the
-// identity elsewhere; w and eid are read only when the group has one.
-template <bool kVecLoads>
+// identity elsewhere; w and eid are read only when the group has one. With
+// kUnd, kh holds the same for the roots pd.
+template <bool kVecLoads, bool kUnd>
 __device__ __forceinline__ void group_keys(const Edges& b, long long g, unsigned mask,
-                                           const int (&ps)[kVec], int n,
-                                           unsigned long long (&k)[kVec]) {
+                                           const int (&ps)[kVec], const int (&pd)[kVec], int n,
+                                           unsigned long long (&k)[kVec],
+                                           unsigned long long (&kh)[kVec]) {
   float w[kVec] = {0.f, 0.f, 0.f, 0.f};
   int id[kVec] = {0, 0, 0, 0};
   if (kVecLoads) {
@@ -184,6 +199,11 @@ __device__ __forceinline__ void group_keys(const Edges& b, long long g, unsigned
   for (int i = 0; i < kVec; ++i) {
     const bool live = (mask >> i & 1u) && static_cast<unsigned>(ps[i]) < static_cast<unsigned>(n);
     k[i] = live ? make_key(w[i], id[i]) : kIdentity;
+    if constexpr (kUnd) {
+      const bool live_h =
+          (mask >> i & 1u) && static_cast<unsigned>(pd[i]) < static_cast<unsigned>(n);
+      kh[i] = live_h ? make_key(w[i], id[i]) : kIdentity;
+    }
   }
 }
 
@@ -198,13 +218,19 @@ __global__ void fill_kernel(unsigned long long* __restrict__ out, int32_t* __res
   }
 }
 
-// One edge on its own (the head and tail): its atomicMin; 1 if outgoing.
+// One edge on its own (the head and tail): its atomicMin (with kUnd, one
+// per side); 1 if outgoing.
+template <bool kUnd>
 __device__ __forceinline__ unsigned reduce_single(const Edges& e, const int32_t* __restrict__ p,
                                                   unsigned long long* out, long long i, int n) {
   if (!e.valid[i]) return 0;
   const int ps = p[e.src[i]];
-  if (ps == p[e.dst[i]]) return 0;
+  const int pd = p[e.dst[i]];
+  if (ps == pd) return 0;
   if (static_cast<unsigned>(ps) < static_cast<unsigned>(n)) atomicMin(out + ps, make_key(e.w[i], e.eid[i]));
+  if constexpr (kUnd) {
+    if (static_cast<unsigned>(pd) < static_cast<unsigned>(n)) atomicMin(out + pd, make_key(e.w[i], e.eid[i]));
+  }
   return 1;
 }
 
@@ -227,7 +253,7 @@ __device__ __forceinline__ void send(unsigned long long* cache, unsigned long lo
   cache[h] = tag | v >> kTagBits;
 }
 
-template <bool kVecLoads>
+template <bool kVecLoads, bool kUnd>
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(Edges e, const int32_t* __restrict__ p, unsigned long long* out,
               unsigned long long* count, long long num_edges, int n, int head) {
@@ -247,9 +273,9 @@ reduce_kernel(Edges e, const int32_t* __restrict__ p, unsigned long long* out,
 
   if (blockIdx.x == 0 && threadIdx.x < 32) {
     const long long tail0 = head + ngroups * kVec;
-    if (lane < head) counted += reduce_single(e, p, out, lane, n);
+    if (lane < head) counted += reduce_single<kUnd>(e, p, out, lane, n);
     if (lane >= 4 && lane < 8 && tail0 + (lane - 4) < num_edges)
-      counted += reduce_single(e, p, out, tail0 + (lane - 4), n);
+      counted += reduce_single<kUnd>(e, p, out, tail0 + (lane - 4), n);
   }
 
   const long long wstride = static_cast<long long>(gridDim.x) * kWarps;
@@ -273,10 +299,16 @@ reduce_kernel(Edges e, const int32_t* __restrict__ p, unsigned long long* out,
     for (int j = 0; j < kSlots; ++j) {
       const long long g = step * kGroupsPerStep + j * 32 + lane;
       int ps[kVec], pd[kVec];
-      unsigned long long kj[kVec];
+      unsigned long long kj[kVec], kh[kVec];
       const unsigned mask = group_roots(cur[j], p, ps, pd);
       counted += __popc(mask);
-      group_keys<kVecLoads>(b, g, mask, ps, n, kj);
+      group_keys<kVecLoads, kUnd>(b, g, mask, ps, pd, n, kj, kh);
+      if constexpr (kUnd) {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          if (kh[i] != kIdentity) send(cache, out, pd[i], kh[i]);
+        }
+      }
       int sj[kVec];
 #pragma unroll
       for (int i = 0; i < kVec; ++i) sj[i] = kj[i] != kIdentity ? ps[i] : -1;
@@ -325,17 +357,25 @@ reduce_kernel(Edges e, const int32_t* __restrict__ p, unsigned long long* out,
 }
 
 // One edge on its own (the head and tail) of the payload pass.
+template <bool kUnd>
 __device__ __forceinline__ void payload_single(const Edges& e, const int32_t* __restrict__ p,
                                                const unsigned long long* __restrict__ out,
                                                int32_t* pay, long long i, int n) {
   if (!e.valid[i]) return;
   const int ps = p[e.src[i]];
   const int pd = p[e.dst[i]];
-  if (ps == pd || static_cast<unsigned>(ps) >= static_cast<unsigned>(n)) return;
-  if (make_key(e.w[i], e.eid[i]) == out[ps]) atomicMin(pay + ps, pd);
+  if constexpr (kUnd) {
+    if (ps == pd) return;
+    const unsigned long long k = make_key(e.w[i], e.eid[i]);
+    if (static_cast<unsigned>(ps) < static_cast<unsigned>(n) && k == out[ps]) atomicMin(pay + ps, pd);
+    if (static_cast<unsigned>(pd) < static_cast<unsigned>(n) && k == out[pd]) atomicMin(pay + pd, ps);
+  } else {
+    if (ps == pd || static_cast<unsigned>(ps) >= static_cast<unsigned>(n)) return;
+    if (make_key(e.w[i], e.eid[i]) == out[ps]) atomicMin(pay + ps, pd);
+  }
 }
 
-template <bool kVecLoads>
+template <bool kVecLoads, bool kUnd>
 __global__ void __launch_bounds__(kThreads)
 payload_kernel(Edges e, const int32_t* __restrict__ p, const unsigned long long* __restrict__ out,
                int32_t* pay, long long num_edges, int n, int head) {
@@ -346,9 +386,9 @@ payload_kernel(Edges e, const int32_t* __restrict__ p, const unsigned long long*
 
   if (blockIdx.x == 0 && threadIdx.x < 32) {
     const long long tail0 = head + ngroups * kVec;
-    if (lane < head) payload_single(e, p, out, pay, lane, n);
+    if (lane < head) payload_single<kUnd>(e, p, out, pay, lane, n);
     if (lane >= 4 && lane < 8 && tail0 + (lane - 4) < num_edges)
-      payload_single(e, p, out, pay, tail0 + (lane - 4), n);
+      payload_single<kUnd>(e, p, out, pay, tail0 + (lane - 4), n);
   }
 
   const long long wstride = static_cast<long long>(gridDim.x) * kWarps;
@@ -368,12 +408,21 @@ payload_kernel(Edges e, const int32_t* __restrict__ p, const unsigned long long*
     for (int j = 0; j < kSlots; ++j) {
       const long long g = step * kGroupsPerStep + j * 32 + lane;
       int ps[kVec], pd[kVec];
-      unsigned long long kj[kVec];
+      unsigned long long kj[kVec], kh[kVec];
       const unsigned mask = group_roots(cur[j], p, ps, pd);
-      group_keys<kVecLoads>(b, g, mask, ps, n, kj);
+      group_keys<kVecLoads, kUnd>(b, g, mask, ps, pd, n, kj, kh);
       unsigned long long o[kVec];
 #pragma unroll
       for (int i = 0; i < kVec; ++i) o[i] = kj[i] != kIdentity ? __ldg(out + ps[i]) : 0ull;
+      if constexpr (kUnd) {
+        unsigned long long oh[kVec];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) oh[i] = kh[i] != kIdentity ? __ldg(out + pd[i]) : 0ull;
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          if (kh[i] != kIdentity && kh[i] == oh[i]) atomicMin(pay + pd[i], ps[i]);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         if (kj[i] != kIdentity && kj[i] == o[i]) atomicMin(pay + ps[i], pd[i]);
@@ -401,6 +450,11 @@ __global__ void decode_kernel(const unsigned long long* __restrict__ out, float*
   }
 }
 
+unsigned int clamp_blocks(long long want, long long wave) {
+  const long long b = want < 1 ? 1 : (want < wave ? want : wave);
+  return static_cast<unsigned int>(b);
+}
+
 // Resident blocks per SM of a kernel, at kThreads threads.
 template <typename Kernel>
 int resident_blocks(Kernel kernel) {
@@ -410,21 +464,29 @@ int resident_blocks(Kernel kernel) {
   return b;
 }
 
-template <bool kVecLoads>
+template <bool kVecLoads, bool kUnd>
 int reduce_wave_per_sm() {
-  static const int cached = resident_blocks(reduce_kernel<kVecLoads>);
+  static const int cached = resident_blocks(reduce_kernel<kVecLoads, kUnd>);
   return cached;
 }
 
-template <bool kVecLoads>
+template <bool kVecLoads, bool kUnd>
 int payload_wave_per_sm() {
-  static const int cached = resident_blocks(payload_kernel<kVecLoads>);
+  static const int cached = resident_blocks(payload_kernel<kVecLoads, kUnd>);
   return cached;
 }
 
-unsigned int clamp_blocks(long long want, long long wave) {
-  const long long b = want < 1 ? 1 : (want < wave ? want : wave);
-  return static_cast<unsigned int>(b);
+// The reduce and payload passes of one instantiation.
+template <bool kVecLoads, bool kUnd>
+void launch_passes(const Edges& e, const int32_t* p, unsigned long long* out, int32_t* pay,
+                   unsigned long long* count, long long num_edges, int n, int head, long long want,
+                   int sms, cudaStream_t st) {
+  reduce_kernel<kVecLoads, kUnd>
+      <<<clamp_blocks(want, static_cast<long long>(sms) * reduce_wave_per_sm<kVecLoads, kUnd>()),
+         kThreads, 0, st>>>(e, p, out, count, num_edges, n, head);
+  payload_kernel<kVecLoads, kUnd>
+      <<<clamp_blocks(want, static_cast<long long>(sms) * payload_wave_per_sm<kVecLoads, kUnd>()),
+         kThreads, 0, st>>>(e, p, out, pay, num_edges, n, head);
 }
 
 }  // namespace
@@ -433,7 +495,8 @@ extern "C" int min_outgoing_flat64_launch(const void* p, const void* src, const 
                                           const void* w, const void* eid, const void* valid,
                                           void* out, void* minw, void* mineid, void* pay,
                                           void* count, long long num_edges, long long n,
-                                          long long head, long long vec_loads, void* stream) {
+                                          long long head, long long vec_loads, long long und,
+                                          void* stream) {
   const Edges e{static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
                 static_cast<const float*>(w), static_cast<const int32_t*>(eid),
                 static_cast<const uint8_t*>(valid)};
@@ -468,17 +531,9 @@ extern "C" int min_outgoing_flat64_launch(const void* p, const void* src, const 
     const long long want = (steps + kWarps - 1) / kWarps;  // at least one block: head and tail
     const int ni = static_cast<int>(n);
     const int hi = static_cast<int>(head);
-    if (vec_loads) {
-      reduce_kernel<true><<<clamp_blocks(want, static_cast<long long>(sms) * reduce_wave_per_sm<true>()),
-                            kThreads, 0, st>>>(e, pp, o, cnt, num_edges, ni, hi);
-      payload_kernel<true><<<clamp_blocks(want, static_cast<long long>(sms) * payload_wave_per_sm<true>()),
-                             kThreads, 0, st>>>(e, pp, o, py, num_edges, ni, hi);
-    } else {
-      reduce_kernel<false><<<clamp_blocks(want, static_cast<long long>(sms) * reduce_wave_per_sm<false>()),
-                             kThreads, 0, st>>>(e, pp, o, cnt, num_edges, ni, hi);
-      payload_kernel<false><<<clamp_blocks(want, static_cast<long long>(sms) * payload_wave_per_sm<false>()),
-                              kThreads, 0, st>>>(e, pp, o, py, num_edges, ni, hi);
-    }
+    const auto passes = und ? (vec_loads ? launch_passes<true, true> : launch_passes<false, true>)
+                            : (vec_loads ? launch_passes<true, false> : launch_passes<false, false>);
+    passes(e, pp, o, py, cnt, num_edges, ni, hi, want, sms, st);
   }
   decode_kernel<<<clamp_blocks((n + kFillThreads - 1) / kFillThreads, fill_wave), kFillThreads, 0,
                   st>>>(o, static_cast<float*>(minw), static_cast<int32_t*>(mineid), n);

@@ -8,7 +8,8 @@ device: :func:`packed_segmin` picks a wrapper or its plain version by the
 request alone. Each wrapper counts its kernel
 launches in a plain integer attribute (``segment_min_flat.launches``,
 ``segment_min_sorted.launches``, ``segment_min_bucketed.launches``,
-``multilinear_dense.launches``, ``min_outgoing_flat64.launches``) and,
+``multilinear_dense.launches``, ``min_outgoing_flat64.launches``,
+``min_outgoing_und64.launches``) and,
 while ``repro_torch.obs`` metrics are on, in the counter
 ``kernel.<name>.launches``: what a serving process reports of its
 launches through its ``metrics`` snapshot.
@@ -41,8 +42,8 @@ _LAUNCH_ARGS = {
     # keys, rows, out, nb, be, block_rows, chunks, buckets_per_block (bucketed_split)
     "segment_min_bucketed": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64),
     # p, src, dst, w, eid, valid, out, minw, mineid, pay, count (or NULL),
-    # E, n, head, vec_loads (flat64_layout)
-    "min_outgoing_flat64": (*(_PTR,) * 11, _I64, _I64, _I64, _I64),
+    # E, n, head, vec_loads (flat64_layout), und (0: directed, 1: undirected)
+    "min_outgoing_flat64": (*(_PTR,) * 11, _I64, _I64, _I64, _I64, _I64),
 }
 
 
@@ -132,6 +133,47 @@ def flat64_layout(int_addrs, valid_addr: int, num_edges: int) -> tuple[int, bool
     return min((4 - offsets.pop()) % 4, num_edges), True
 
 
+def _min_outgoing64(wrapper, und: bool, p, a, b, w, eid, valid, n: int, count: bool):
+    """Check, then run :func:`min_outgoing_flat64`'s kernel in the mode
+    ``und`` (``a``, ``b``: src and dst, or lo and hi) and count the launch
+    on ``wrapper``."""
+    ends = ("lo", "hi") if und else ("src", "dst")
+    arrays = {"p": p, ends[0]: a, ends[1]: b, "w": w, "eid": eid, "valid": valid}
+    for name, t in arrays.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch tensor")
+        want = {"w": torch.float32, "valid": torch.bool}.get(name, torch.int32)
+        if t.dtype != want:
+            raise ValueError(f"{name} must be {want}, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be 1-D and contiguous")
+        if t.device != p.device:
+            raise ValueError(f"{name} on {t.device} but p on {p.device}")
+    e = a.numel()
+    if any(t.numel() != e for t in (b, w, eid, valid)):
+        raise ValueError(f"{ends[0]}, {ends[1]}, w, eid and valid must have one length")
+    if not isinstance(n, int) or not 0 <= n <= _INT32_MAX or p.numel() != n:
+        raise ValueError(f"p must be [n] with n an int in [0, 2^31), got n={n!r}, "
+                         f"p {tuple(p.shape)}")
+    if p.device.type == "cpu":
+        twin = ref.min_outgoing_und64_ref if und else ref.min_outgoing_flat64_ref
+        r, cnt = twin(p, a, b, w, eid, valid, n)
+        return r, (cnt if count else None)
+    if p.device.type != "cuda":
+        raise ValueError(f"unsupported device {p.device}")
+    dev = p.device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    minw = torch.empty(n, dtype=torch.float32, device=dev)
+    mineid = torch.empty(n, dtype=torch.int32, device=dev)
+    pay = torch.empty(n, dtype=torch.int32, device=dev)
+    cnt = torch.empty((), dtype=torch.int64, device=dev) if count else None
+    head, vec = flat64_layout([t.data_ptr() for t in (a, b, w, eid)], valid.data_ptr(), e)
+    _launch("min_outgoing_flat64", p, a, b, w, eid, valid, out, minw, mineid, pay,
+            cnt if count else 0, e, n, head, int(vec), int(und))
+    _count_launch(wrapper)
+    return EdgeMin(w=minw, eid=mineid, payload=(pay,)), cnt
+
+
 def min_outgoing_flat64(p, src, dst, w, eid, valid, n: int, *, count: bool = False):
     """Per-root minimum outgoing edge of a symmetric COO graph whose every
     tree is a star, with 64-bit ``(w, eid)`` keys:
@@ -147,42 +189,31 @@ def min_outgoing_flat64(p, src, dst, w, eid, valid, n: int, *, count: bool = Fal
     launch ``csrc/min_outgoing_flat64.cu``, which allocates nothing
     edge-sized and waits on nothing.
     """
-    arrays = {"p": p, "src": src, "dst": dst, "w": w, "eid": eid, "valid": valid}
-    for name, t in arrays.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch tensor")
-        want = {"w": torch.float32, "valid": torch.bool}.get(name, torch.int32)
-        if t.dtype != want:
-            raise ValueError(f"{name} must be {want}, got {t.dtype}")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be 1-D and contiguous")
-        if t.device != p.device:
-            raise ValueError(f"{name} on {t.device} but p on {p.device}")
-    e = src.numel()
-    if any(t.numel() != e for t in (dst, w, eid, valid)):
-        raise ValueError("src, dst, w, eid and valid must have one length")
-    if not isinstance(n, int) or not 0 <= n <= _INT32_MAX or p.numel() != n:
-        raise ValueError(f"p must be [n] with n an int in [0, 2^31), got n={n!r}, "
-                         f"p {tuple(p.shape)}")
-    if p.device.type == "cpu":
-        r, cnt = ref.min_outgoing_flat64_ref(p, src, dst, w, eid, valid, n)
-        return r, (cnt if count else None)
-    if p.device.type != "cuda":
-        raise ValueError(f"unsupported device {p.device}")
-    dev = p.device
-    out = torch.empty(n, dtype=torch.int64, device=dev)
-    minw = torch.empty(n, dtype=torch.float32, device=dev)
-    mineid = torch.empty(n, dtype=torch.int32, device=dev)
-    pay = torch.empty(n, dtype=torch.int32, device=dev)
-    cnt = torch.empty((), dtype=torch.int64, device=dev) if count else None
-    head, vec = flat64_layout([t.data_ptr() for t in (src, dst, w, eid)], valid.data_ptr(), e)
-    _launch("min_outgoing_flat64", p, src, dst, w, eid, valid, out, minw, mineid, pay,
-            cnt if count else 0, e, n, head, int(vec))
-    _count_launch(min_outgoing_flat64)
-    return EdgeMin(w=minw, eid=mineid, payload=(pay,)), cnt
+    return _min_outgoing64(min_outgoing_flat64, False, p, src, dst, w, eid, valid, n, count)
 
 
 min_outgoing_flat64.launches = 0
+
+
+def min_outgoing_und64(p, lo, hi, w, eid, valid, n: int, *, count: bool = False):
+    """:func:`min_outgoing_flat64` over undirected edges held once each:
+    the per-root MINWEIGHT of a coarsen level's hook round.
+
+    An edge ``(lo, hi)`` is outgoing when ``valid`` and ``p[lo] != p[hi]``;
+    it offers its ``(w, eid)`` to ``p[lo]`` with the payload ``p[hi]`` and
+    to ``p[hi]`` with ``p[lo]``. Returns ``(EdgeMin over [n] with payload
+    (the winner's other root,), count)``: what ``semiring.segment_argmin``
+    gives over both directions of the outgoing edges, a zero weight as
+    ``+0.0`` and ``(inf, IMAX, IMAX)`` at a root with none; ``count`` is
+    the 0-d int64 number of outgoing undirected edges when asked for, else
+    ``None``. Arguments as :func:`min_outgoing_flat64`'s. CPU tensors run
+    :func:`~repro_torch.kernels.ref.min_outgoing_und64_ref`; CUDA tensors
+    launch ``csrc/min_outgoing_flat64.cu`` in its undirected mode.
+    """
+    return _min_outgoing64(min_outgoing_und64, True, p, lo, hi, w, eid, valid, n, count)
+
+
+min_outgoing_und64.launches = 0
 
 
 def _check_segment_min_args(keys, segs, num_segments) -> None:

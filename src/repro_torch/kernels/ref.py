@@ -95,6 +95,21 @@ def unkey64(keys: torch.Tensor):
     return w, ((keys & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
+def _least_keys(seg, key, payload, n: int, device) -> EdgeMin:
+    """Per segment of ``[0, n)`` the least 64-bit key (:func:`key64`) and
+    the least ``payload`` among the pieces that hold it; ``(inf, IMAX,
+    IMAX)`` at a segment with no piece. ``seg`` int64 lies in ``[0, n)``."""
+    out = torch.full((n,), KEY64_IDENTITY, dtype=torch.int64, device=device)
+    out.scatter_reduce_(0, seg, key, "amin", include_self=True)
+    win = key == out[seg]
+    pay = torch.full((n,), IMAX, dtype=torch.int32, device=device)
+    pay.scatter_reduce_(0, seg[win], payload[win], "amin", include_self=True)
+    empty = out == KEY64_IDENTITY
+    minw, mineid = unkey64(out)
+    return EdgeMin(w=torch.where(empty, INF, minw), eid=torch.where(empty, IMAX, mineid),
+                   payload=(pay,))
+
+
 def min_outgoing_flat64_ref(p, src, dst, w, eid, valid, n: int):
     """Plain version of ``csrc/min_outgoing_flat64.cu``: per root
     ``s = p[src]``, the least ``(w, eid)`` over the outgoing edges
@@ -111,14 +126,30 @@ def min_outgoing_flat64_ref(p, src, dst, w, eid, valid, n: int):
     outgoing = valid & (ps != pd)
     count = outgoing.sum()
     take = (outgoing & (ps >= 0) & (ps < n)).nonzero().squeeze(1)
-    seg, key, pd = ps[take], key64(w[take], eid[take]), pd[take]
-    out = torch.full((n,), KEY64_IDENTITY, dtype=torch.int64, device=p.device)
-    out.scatter_reduce_(0, seg, key, "amin", include_self=True)
-    win = key == out[seg]
-    pay = torch.full((n,), IMAX, dtype=torch.int32, device=p.device)
-    pay.scatter_reduce_(0, seg[win], pd[win], "amin", include_self=True)
-    empty = out == KEY64_IDENTITY
-    minw, mineid = unkey64(out)
-    r = EdgeMin(w=torch.where(empty, INF, minw), eid=torch.where(empty, IMAX, mineid),
-                payload=(pay,))
-    return r, count
+    return _least_keys(ps[take], key64(w[take], eid[take]), pd[take], n, p.device), count
+
+
+def min_outgoing_und64_ref(p, lo, hi, w, eid, valid, n: int):
+    """Plain version of ``csrc/min_outgoing_flat64.cu``'s undirected mode:
+    each undirected edge ``(lo, hi)`` is outgoing when ``valid`` and
+    ``p[lo] != p[hi]``, and offers its ``(w, eid)`` to both of its roots,
+    to ``p[lo]`` with the payload ``p[hi]`` and to ``p[hi]`` with
+    ``p[lo]``: :func:`min_outgoing_flat64_ref` over the two directions of
+    every edge.
+
+    Same arguments, dtypes and result as :func:`min_outgoing_flat64_ref`
+    with ``lo``/``hi`` in place of ``src``/``dst``; the count is of the
+    outgoing undirected edges. A root outside ``[0, n)`` drops that side.
+    """
+    plo = p[lo].long()
+    phi = p[hi].long()
+    outgoing = valid & (plo != phi)
+    count = outgoing.sum()
+    take = outgoing.nonzero().squeeze(1)
+    plo, phi = plo[take], phi[take]
+    key = key64(w[take], eid[take])
+    seg = torch.cat([plo, phi])
+    other = torch.cat([phi, plo]).to(torch.int32)
+    key = torch.cat([key, key])
+    keep = (seg >= 0) & (seg < n)
+    return _least_keys(seg[keep], key[keep], other[keep], n, p.device), count

@@ -31,7 +31,11 @@ Scope and units, as in the reference:
   the passes of the kernel's twin that the CPU runs.
 - **coarsen** — level 0 of ``coarsen/engine.py``: its K hook rounds over
   the undirected arrays (``contract.py::make_und_reduce``: two
-  segment-mins per round), the rank relabel and, for ``fused=True``,
+  segment-mins per round; without pack32, for a plan resolved for the
+  card, one call of the 64-bit kernel's undirected mode,
+  ``kernels.ops.min_outgoing_und64``, charged as the flat round's with
+  the payload pass reading both roots' keys), the rank relabel and, for
+  ``fused=True``,
   the dedupe (sort, ``segment_min_sorted``, compaction) and the label
   composition (``analyzed="coarsen.level0.fused"``; unfused:
   ``"coarsen.level0"``, the contract half only, as the reference
@@ -161,16 +165,17 @@ def _outgoing_mask(t: _Tally, e: int) -> None:
     t.ew("key_build", e, 2 * _B, _B)  # & valid
 
 
-def _min_outgoing64(t: _Tally, e: int, n: int) -> None:
+def _min_outgoing64(t: _Tally, e: int, n: int, sides: int = 1) -> None:
     """``kernels.ops.min_outgoing_flat64`` with every edge outgoing: the
     fill, the reduce pass and the payload pass (each streams src, dst,
     valid, w and eid and gathers ``p`` twice; the payload pass reads the
-    root's key per edge) and the decode."""
+    root's key per edge, and in the undirected mode, ``sides`` 2, both
+    roots' keys) and the decode."""
     for term in ("segment_min", "payload"):
         t.add(term, e * (2 * _I32 + _B + _F32 + _I32), e)
         t.add("gathers", e * 2 * _I32)
     t.add("segment_min", n * 2 * _I64)  # the fill; one key written per root
-    t.add("payload", e * _I64 + n * 2 * _I32)  # out[ps]; the fill, one payload per root
+    t.add("payload", sides * e * _I64 + n * 2 * _I32)  # out[ps]; the fill, one payload per root
     t.add("payload", n * (_I64 + _F32 + _I32))  # the decode
 
 
@@ -417,6 +422,45 @@ def _sort_int64(t: _Tally, k: int) -> None:
     t.add("dedupe", RADIX_PASSES_INT64 * k * 4 * _I64, RADIX_PASSES_INT64 * k)
 
 
+def _und_reduce_torch(t: _Tally, pad: int, n: int, pack: bool) -> None:
+    """One round of ``make_und_reduce``'s segment-min routes: the gathers,
+    the two (pack32) or four (float, then eid) scatter-mins and
+    ``payload_from_eid``."""
+    t.gather("gathers", pad, _I32, idx32=False)  # p[lo_l]
+    t.gather("gathers", pad, _I32, idx32=False)  # p[hi_l]
+    t.ew("key_build", pad, 2 * _I32, _B)  # plo != phi
+    t.ew("key_build", pad, 2 * _B, _B)  # & valid
+    if pack:
+        _key_build(t, pad)
+        _segmin_packed(t, pad, n)
+        _segmin_packed(t, pad, n)
+        t.ew("payload", n, 2 * _I64, _I64)  # minimum(m1, m2)
+        _unpack(t, "payload", n)
+    else:
+        t.ew("key_build", pad, _B + _F32, _F32)  # where(out, w, inf)
+        t.scatter_min("segment_min", pad, _F32, n)
+        t.scatter_min("segment_min", pad, _F32, n)
+        t.ew("payload", n, 2 * _F32, _F32)  # minimum
+        for _ in range(2):  # on1, on2 and their eid mins
+            t.gather("payload", pad, _F32)
+            t.ew("payload", pad, 2 * _F32 + _B, _B, 2)
+            t.ew("payload", pad, _B + _I32, _I32)
+            t.scatter_min("segment_min", pad, _I32, n)
+        t.ew("payload", n, 2 * _I32, _I32)  # minimum
+        t.ew("payload", n, _F32, _B)  # empty
+    # payload_from_eid
+    t.ew("payload", n, _I32, _I32)  # clamp
+    t.gather("payload", n, _I32)  # pos_of_eid[...]
+    t.ew("payload", n, _I32 + _B, _B, 3)  # local
+    t.ew("payload", n, _I32, _I64, 2)  # clamp, long
+    t.gather("payload", n, _I64, idx32=False)  # lo_l[safe]
+    t.gather("payload", n, _I64, idx32=False)  # hi_l[safe]
+    t.gather("payload", n, _I32, idx32=False)  # p[...]
+    t.gather("payload", n, _I32, idx32=False)
+    t.ew("payload", n, 3 * _I32, _I32, 2)  # where(plo == i_n, phi, plo)
+    t.ew("payload", n, _B + _I32, _I32)  # where(local, pd, IMAX)
+
+
 def coarsen_level0_terms(n0: int, e: int, rs) -> tuple:
     """``(terms, analyzed)`` of coarsen level 0, or ``None`` when no level
     runs (``n0 <= cutoff``): the flat cost applies then."""
@@ -428,49 +472,21 @@ def coarsen_level0_terms(n0: int, e: int, rs) -> tuple:
     n = _next_pow2(n0, 8)
     cap = pad  # eid capacity: eids number the undirected edges
     pack = cfg.pack if cfg.pack is not None else bool(rs.pack) and 2 * pad < PACK_IDX_MASK
+    kernel = not pack and rs.backend == "cuda"  # ops.min_outgoing_und64 on the card
     t = _Tally()
-    # make_und_reduce's setup
-    t.ew("index_casts", pad, _I32, _I64, 2)  # lo.long(), hi.long()
-    t.ew("index_casts", pad, _I32, _I64)
-    t.ew("payload", pad, _B + 2 * _I32, _B, 5)  # keep
-    t.add("payload", (cap + 1) * _I32)  # pos_of_eid fill
-    t.ew("payload", pad, _B + _I32, _I64, 2)  # where(keep, eid, cap).long()
-    t.add("payload", pad * (_I32 + _I64 + _I32))  # arange, scatter
-    t.add("hook", n * _I32)  # i_n
+    if not kernel:  # make_und_reduce's setup
+        t.ew("index_casts", pad, _I32, _I64, 2)  # lo.long(), hi.long()
+        t.ew("index_casts", pad, _I32, _I64)
+        t.ew("payload", pad, _B + 2 * _I32, _B, 5)  # keep
+        t.add("payload", (cap + 1) * _I32)  # pos_of_eid fill
+        t.ew("payload", pad, _B + _I32, _I64, 2)  # where(keep, eid, cap).long()
+        t.add("payload", pad * (_I32 + _I64 + _I32))  # arange, scatter
+        t.add("hook", n * _I32)  # i_n
     for _ in range(cfg.rounds_per_level):
-        t.gather("gathers", pad, _I32, idx32=False)  # p[lo_l]
-        t.gather("gathers", pad, _I32, idx32=False)  # p[hi_l]
-        t.ew("key_build", pad, 2 * _I32, _B)  # plo != phi
-        t.ew("key_build", pad, 2 * _B, _B)  # & valid
-        if pack:
-            _key_build(t, pad)
-            _segmin_packed(t, pad, n)
-            _segmin_packed(t, pad, n)
-            t.ew("payload", n, 2 * _I64, _I64)  # minimum(m1, m2)
-            _unpack(t, "payload", n)
+        if kernel:
+            _min_outgoing64(t, pad, n, sides=2)
         else:
-            t.ew("key_build", pad, _B + _F32, _F32)  # where(out, w, inf)
-            t.scatter_min("segment_min", pad, _F32, n)
-            t.scatter_min("segment_min", pad, _F32, n)
-            t.ew("payload", n, 2 * _F32, _F32)  # minimum
-            for _ in range(2):  # on1, on2 and their eid mins
-                t.gather("payload", pad, _F32)
-                t.ew("payload", pad, 2 * _F32 + _B, _B, 2)
-                t.ew("payload", pad, _B + _I32, _I32)
-                t.scatter_min("segment_min", pad, _I32, n)
-            t.ew("payload", n, 2 * _I32, _I32)  # minimum
-            t.ew("payload", n, _F32, _B)  # empty
-        # payload_from_eid
-        t.ew("payload", n, _I32, _I32)  # clamp
-        t.gather("payload", n, _I32)  # pos_of_eid[...]
-        t.ew("payload", n, _I32 + _B, _B, 3)  # local
-        t.ew("payload", n, _I32, _I64, 2)  # clamp, long
-        t.gather("payload", n, _I64, idx32=False)  # lo_l[safe]
-        t.gather("payload", n, _I64, idx32=False)  # hi_l[safe]
-        t.gather("payload", n, _I32, idx32=False)  # p[...]
-        t.gather("payload", n, _I32, idx32=False)
-        t.ew("payload", n, 3 * _I32, _I32, 2)  # where(plo == i_n, phi, plo)
-        t.ew("payload", n, _B + _I32, _I32)  # where(local, pd, IMAX)
+            _und_reduce_torch(t, pad, n, pack)
         _hook_record(t, n)
         _complete_shortcut(t, n)
     # rank_relabel

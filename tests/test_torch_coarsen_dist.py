@@ -140,6 +140,24 @@ def test_dist_coarsen_float_path(host_mesh, port_mesh):
     assert stats_fields(td.last_stats) == stats_fields(jd.last_stats)
 
 
+def test_dist_coarsen_float_path_keeps_the_combine_route(port_mesh, monkeypatch):
+    """The dist levels all-reduce the dense partials before the winner is
+    picked, so their unpacked rounds keep ``make_und_reduce``'s
+    segment-min route and never call the single-device undirected kernel."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    monkeypatch.setattr(ops, "min_outgoing_und64", lambda *a, **k: calls.append(a))
+    rng = np.random.default_rng(41)
+    n, m = 220, 700
+    g = from_edges(rng.integers(0, n, m), rng.integers(0, n, m), rng.random(m) + 0.5, n)
+    tp = tpartition(cpu_graph(g), 1, 1)
+    td = TDistCoarsenMSF(tp, port_mesh, TConfig(**_LEVELS, dedupe="device"))
+    td(*_arrays(tp))
+    assert len(td.last_stats.levels) >= 1
+    assert calls == []
+
+
 def test_dist_coarsen_below_cutoff_residual_only(host_mesh, port_mesh):
     g = grid_road_graph(10, 12, seed=7)
     jp, tp = _parts(g)

@@ -1,18 +1,24 @@
 """The 64-bit-key min-outgoing kernel of the unpacked flat round
-(``kernels.ops.min_outgoing_flat64``, ``csrc/min_outgoing_flat64.cu``).
+(``kernels.ops.min_outgoing_flat64``, ``csrc/min_outgoing_flat64.cu``) and
+its undirected mode, the coarsen levels' hook reduction
+(``kernels.ops.min_outgoing_und64``).
 
-On the CPU: its plain twin (``kernels.ref.min_outgoing_flat64_ref``)
-against ``semiring.segment_argmin``, and ``min_outgoing_coo``'s root form
-running the twin through the wrapper, as it runs the kernel on the card.
-On a card (marker ``gpu``; skipped without one or without ``nvcc``): the
-kernel against the twin, and whole solves on the card against the same
-solves on the CPU.
+On the CPU: the plain twins (``kernels.ref.min_outgoing_flat64_ref``,
+``min_outgoing_und64_ref``) against ``semiring.segment_argmin``,
+``min_outgoing_coo``'s root form running the twin through the wrapper, as
+it runs the kernel on the card, and which routes of
+``coarsen.contract.make_und_reduce`` call the undirected wrapper. On a
+card (marker ``gpu``; skipped without one or without ``nvcc``): the kernel
+against the twins, and whole solves on the card against the same solves
+on the CPU or on the scatter route the undirected mode replaced.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from _torch_util import one_torch_thread  # noqa: E402,F401
+from chip_smoke import same_und_minima, und_scatter_route  # noqa: E402
+from repro_torch.coarsen import contract  # noqa: E402
 from repro_torch.core.msf import count_true  # noqa: E402
 from repro_torch.core.multilinear import min_outgoing_coo  # noqa: E402
 from repro_torch.core.semiring import IMAX, EdgeMin, segment_argmin  # noqa: E402
@@ -228,6 +234,220 @@ def test_cost_counts_the_kernel_passes_on_the_card():
 
 
 # ---------------------------------------------------------------------------
+# the undirected mode
+# ---------------------------------------------------------------------------
+
+
+def _und_case(name, seed=0):
+    """(p, lo, hi, w, eid, valid, n) of one named undirected case: each
+    edge held once with lo <= hi, sorted by lo as the coarsen levels hold
+    them, under a star-canonical parent vector."""
+    gen = torch.Generator().manual_seed(seed)
+    n, m = 600, 2400
+    u = torch.randint(0, n, (m,), generator=gen)
+    v = torch.randint(0, n, (m,), generator=gen)
+    w = torch.randint(1, 256, (m,), generator=gen).float()
+    valid = torch.ones(m, dtype=torch.bool)
+    p = _stars(n, 40, gen)
+    if name == "empty":
+        u, v, w, valid = u[:0], v[:0], w[:0], valid[:0]
+    elif name == "n_zero":
+        n, p = 0, p[:0]
+        u, v, w, valid = u[:0], v[:0], w[:0], valid[:0]
+    elif name == "invalid":
+        valid = torch.rand(m, generator=gen) < 0.7
+        w[~valid] = 0.0  # would win were they valid
+    elif name == "self_loops":
+        v[:600] = u[:600]  # lo == hi: never outgoing
+    elif name == "signed_zeros":
+        w = torch.randint(0, 4, (m,), generator=gen).float() - 2
+        w[torch.rand(m, generator=gen) < 0.5] = -0.0
+        w[torch.rand(m, generator=gen) < 0.3] = 0.0
+    elif name == "valid_inf":
+        p = _stars(n, 500, gen)
+        w[torch.rand(m, generator=gen) < 0.9] = INF  # some roots only have +inf edges
+    elif name == "out_of_range_roots":
+        bad = torch.rand(n, generator=gen) < 0.1
+        p[bad] = torch.where(torch.rand(n, generator=gen)[bad] < 0.5, -1, n + 3).to(torch.int32)
+    elif name == "repeated_pair":
+        k = 300  # the same pair again under its own eid, and a few under the same eid
+        u, v = torch.cat([u, u[:k]]), torch.cat([v, v[:k]])
+        w = torch.cat([w, torch.randint(1, 256, (k,), generator=gen).float()])
+        valid = torch.ones(u.numel(), dtype=torch.bool)
+    elif name == "hub_star":
+        leaves = 1 << 12
+        n = leaves + 1 + 256
+        hub = n - 1  # the hub is every leaf edge's hi
+        leaf = torch.arange(leaves)
+        outside = torch.randint(leaves, n - 1, (leaves,), generator=gen)
+        u = torch.cat([leaf, leaf])
+        v = torch.cat([torch.full((leaves,), hub), outside])
+        w = torch.randint(1, 256, (u.numel(),), generator=gen).float()
+        valid = torch.ones(u.numel(), dtype=torch.bool)
+        p = torch.arange(n, dtype=torch.int32)
+        p[leaf] = hub  # the leaves hang on the hub: their outside edges all reach it
+    elif name == "no_outgoing":
+        p = torch.zeros(n, dtype=torch.int32)
+    lo, hi = torch.minimum(u, v), torch.maximum(u, v)
+    eid = torch.randperm(lo.numel(), generator=gen).to(torch.int32)
+    if name == "repeated_pair":
+        eid[-20:] = eid[:20]  # a multigraph repeat: the same pair and eid twice
+        w[-20:] = w[:20]
+    order = torch.sort(lo, stable=True).indices
+    lo, hi, w, eid, valid = (a[order] for a in (lo.to(torch.int32), hi.to(torch.int32), w,
+                                                 eid, valid))
+    return p, lo, hi, w, eid, valid, n
+
+
+UND_CASES = ["integer_ties", "empty", "n_zero", "invalid", "self_loops", "signed_zeros",
+             "valid_inf", "out_of_range_roots", "repeated_pair", "hub_star", "no_outgoing"]
+
+
+def _und_argmin(p, lo, hi, w, eid, valid, n):
+    """``segment_argmin`` over both directions of every undirected edge,
+    segments ``p[src]``, payload ``p[dst]``, a root out of range dropped;
+    and the count of the outgoing undirected edges."""
+    src, dst = torch.cat([lo, hi]), torch.cat([hi, lo])
+    ps, pd = p[src], p[dst]
+    live = torch.cat([valid, valid]) & (ps != pd) & (ps >= 0) & (ps < n)
+    seg = torch.where(live, ps, 0)
+    want = segment_argmin(torch.cat([w, w]), torch.cat([eid, eid]), (pd,), seg, n, valid=live)
+    return want, int(count_true(valid & (p[lo] != p[hi])))
+
+
+@pytest.mark.parametrize("case", UND_CASES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_und_twin_matches_segment_argmin(case, seed):
+    p, lo, hi, w, eid, valid, n = _und_case(case, seed)
+    want, outgoing = _und_argmin(p, lo, hi, w, eid, valid, n)
+    got, count = ref.min_outgoing_und64_ref(p, lo, hi, w, eid, valid, n)
+    _same(got, want)
+    assert int(count) == outgoing
+    assert not torch.signbit(got.w[got.w == 0]).any()
+    # the twin is the directed twin over the concatenated form
+    flat, _ = ref.min_outgoing_flat64_ref(p, torch.cat([lo, hi]), torch.cat([hi, lo]),
+                                          torch.cat([w, w]), torch.cat([eid, eid]),
+                                          torch.cat([valid, valid]), n)
+    _same(got, flat)
+    if case in ("empty", "no_outgoing", "n_zero"):
+        assert outgoing == 0 and bool((got.w == INF).all()) and bool((got.eid == IMAX).all())
+        assert bool((got.payload[0] == IMAX).all())
+    if case == "valid_inf":
+        assert bool(((want.w == INF) & (want.eid != IMAX)).any())  # inf winners exist
+    if case == "hub_star":
+        assert int(count_true((p[hi] == n - 1) & (p[lo] != p[hi]))) == 0  # hub-leaf edges dead
+        assert int(got.eid[n - 1]) != IMAX  # the hub's root wins through its leaves' edges
+    # the wrapper on CPU tensors runs the twin
+    r, c = ops.min_outgoing_und64(p, lo, hi, w, eid, valid, n, count=True)
+    _same(r, got)
+    assert int(c) == outgoing
+    assert ops.min_outgoing_und64(p, lo, hi, w, eid, valid, n)[1] is None
+
+
+@pytest.mark.parametrize("case", ["integer_ties", "invalid", "self_loops", "signed_zeros",
+                                  "valid_inf", "repeated_pair", "hub_star", "no_outgoing"])
+def test_und_twin_matches_the_scatter_route(case):
+    """The four scatter-mins the undirected mode replaced give the same
+    minima, but for the sign of a zero weight and the payload at a root
+    whose least weight is +inf (IMAX there; the hook reads neither)."""
+    p, lo, hi, w, eid, valid, n = _und_case(case, 4)
+    got, _ = ref.min_outgoing_und64_ref(p, lo, hi, w, eid, valid, n)
+    want, _ = und_scatter_route(p, lo, hi, w, eid, valid, n)
+    assert same_und_minima(got, want)
+
+
+def test_und_wrapper_rejects_bad_inputs():
+    p, lo, hi, w, eid, valid, n = _und_case("integer_ties")
+    with pytest.raises(ValueError, match="lo must be"):
+        ops.min_outgoing_und64(p, lo.long(), hi, w, eid, valid, n)
+    with pytest.raises(ValueError, match="lo, hi, w, eid and valid"):
+        ops.min_outgoing_und64(p, lo, hi[1:], w, eid, valid, n)
+    with pytest.raises(ValueError):
+        ops.min_outgoing_und64(p, lo, hi, w, eid, valid, n + 1)
+    with pytest.raises(ValueError, match="hi must be 1-D and contiguous"):
+        ops.min_outgoing_und64(p, lo, torch.stack([hi, hi], 1)[:, 0], w, eid, valid, n)
+
+
+def _spy(monkeypatch):
+    calls = []
+    wrapper = ops.min_outgoing_und64
+
+    def spy(*args, **kw):
+        calls.append(args[-1])
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(ops, "min_outgoing_und64", spy)
+    return calls
+
+
+@pytest.mark.parametrize("rounds", [1, 2, 3])
+def test_contract_level_und_unpacked_calls_the_wrapper_once_a_round(rounds, monkeypatch):
+    calls = _spy(monkeypatch)
+    p, lo, hi, w, eid, valid, n = _und_case("integer_ties", 6)
+    w = w + 0.25  # not integral: what the levels run without pack32
+    got = contract.contract_level_und(lo, hi, w, eid, valid, n=n, eid_capacity=4096,
+                                      rounds=rounds, pack=False)
+    assert calls == [n] * rounds
+    # the same level through the dist route's code (combine set) and the
+    # directed form
+    monkeypatch.undo()
+    route = contract.make_und_reduce(lo, hi, w, eid, valid, n=n, eid_capacity=4096,
+                                     combine=lambda x: x)
+    via_combine = contract.contract_rounds(route, n, rounds, lo.device)
+    directed = contract.contract_level(torch.cat([lo, hi]), torch.cat([hi, lo]),
+                                       torch.cat([w, w]), torch.cat([eid, eid]),
+                                       torch.cat([valid, valid]), n=n, rounds=rounds)
+    for want in (via_combine, directed):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pack,combine", [(True, None), (True, "identity"),
+                                          (False, "identity")])
+def test_pack_and_combine_routes_do_not_call_the_wrapper(pack, combine, monkeypatch):
+    calls = _spy(monkeypatch)
+    p, lo, hi, w, eid, valid, n = _und_case("integer_ties", 8)
+    reduce_fn = contract.make_und_reduce(
+        lo, hi, w, eid, valid, n=n, eid_capacity=4096, pack=pack,
+        combine=(lambda x: x) if combine else None)
+    got = reduce_fn(p)
+    assert calls == []
+    want, _ = ref.min_outgoing_und64_ref(p, lo, hi, w, eid, valid, n)
+    assert torch.equal(got.eid, want.eid) and torch.equal(got.payload[0], want.payload[0])
+    assert torch.equal(got.w, want.w)
+
+
+def test_cost_counts_the_undirected_kernel_on_the_card():
+    """``coarsen_level0_terms`` of an unpacked plan resolved for the card
+    charges each hook round the undirected kernel (the flat kernel's
+    passes, its payload pass reading both roots' keys) and no eid →
+    position table; a plan resolved for the CPU keeps the scatter route's
+    terms, and pack32 plans are the same on both."""
+    from repro_torch.coarsen import CoarsenConfig
+    from repro_torch.graphs.generators import random_graph
+    from repro_torch.solve import SolveSpec
+    from repro_torch.solve import cost as tcost
+
+    g = random_graph(300, 1200, seed=2, device="cpu")
+    e, n = g.src.numel(), g.n
+    spec = SolveSpec(mode="coarsen", pack=False, coarsen=CoarsenConfig(cutoff=16))
+    card, label = tcost.coarsen_level0_terms(n, e, spec.resolve(g, backend="cuda"))
+    cpu, label_cpu = tcost.coarsen_level0_terms(n, e, spec.resolve(g))
+    assert label == label_cpu == "coarsen.level0"
+    pad, n_pad = 1 << (e // 2 - 1).bit_length(), 1 << (n - 1).bit_length()
+    rounds = CoarsenConfig().rounds_per_level
+    assert card["segment_min"] == (rounds * (17 * pad + 16 * n_pad), rounds * pad)
+    assert card["gathers"] == (rounds * 16 * pad, 0.0)
+    assert "key_build" not in card and "key_build" in cpu
+    assert cpu["segment_min"][1] == rounds * 4 * pad  # four scatter-mins a round
+    assert card["index_casts"][0] < cpu["index_casts"][0]  # no lo.long(), hi.long()
+    assert sum(b for b, _ in card.values()) < sum(b for b, _ in cpu.values())
+    packed = SolveSpec(mode="coarsen", pack=True, coarsen=CoarsenConfig(cutoff=16))
+    assert tcost.coarsen_level0_terms(n, e, packed.resolve(g, backend="cuda")) == \
+        tcost.coarsen_level0_terms(n, e, packed.resolve(g))
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -368,3 +588,134 @@ def test_solve_on_the_card_matches_the_cpu(card, scale):
         obs.reset()
         obs.metrics_reset()
     assert counts[0] == counts[1] and len(counts[0]) == got.iterations
+
+
+def _check_und_on_card(p, lo, hi, w, eid, valid, n):
+    """The undirected mode on the card against its twin on the CPU, bit
+    for bit; the count against ``count_true`` of the mask; its own launch
+    counter advances and the directed one does not."""
+    from repro_torch import obs
+
+    before = (ops.min_outgoing_und64.launches, ops.min_outgoing_flat64.launches)
+    obs.enable("metrics")
+    try:
+        obs.metrics_reset()
+        got, count = ops.min_outgoing_und64(p, lo, hi, w, eid, valid, n, count=True)
+        torch.cuda.synchronize()
+        snap = obs.metrics_snapshot()
+    finally:
+        obs.disable()
+        obs.metrics_reset()
+    assert (ops.min_outgoing_und64.launches, ops.min_outgoing_flat64.launches) == \
+        (before[0] + 1, before[1])
+    assert snap["counters"]["kernel.min_outgoing_und64.launches"] == 1
+    assert "kernel.min_outgoing_flat64.launches" not in snap["counters"]
+    cpu = [t.cpu() for t in (p, lo, hi, w, eid, valid)]
+    want, want_count = ref.min_outgoing_und64_ref(*cpu, n)
+    for a, b in zip((got.w, got.eid, got.payload[0]), (want.w, want.eid, want.payload[0])):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    assert int(count) == int(want_count) == int(count_true((cpu[0][cpu[1]] != cpu[0][cpu[2]])
+                                                           & cpu[5]))
+    return got
+
+
+def _und_views(p, lo, hi, w, eid, valid, n):
+    """The arrays whole (16-byte loads from edge 0), every one from edge 1
+    (a head of 3 edges, then 16-byte loads) and lo, hi from edge 1 beside
+    w, eid, valid from edge 0 (no head aligns all five: edge by edge)."""
+    e = lo.numel()
+    views = [(lo, hi, w, eid, valid), tuple(a[1:] for a in (lo, hi, w, eid, valid)),
+             (lo[1:], hi[1:], w[:-1], eid[:-1], valid[:-1])]
+    assert ops.flat64_layout([t.data_ptr() for t in views[1][:4]], views[1][4].data_ptr(),
+                             e - 1) == (3, True)
+    assert not ops.flat64_layout([t.data_ptr() for t in views[2][:4]],
+                                 views[2][4].data_ptr(), e - 1)[1]
+    return [(p, *v, n) for v in views]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", UND_CASES)
+def test_und_kernel_matches_twin(card, case):
+    args = _und_case(case, 5)
+    moved = (*(a.to(card) for a in args[:6]), args[6])
+    if moved[1].numel() < 2:
+        _check_und_on_card(*moved)
+        return
+    for view in _und_views(*moved):
+        _check_und_on_card(*view)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e", [0, 1, 2, 3, 5])
+def test_und_kernel_below_the_vector_width(card, e):
+    p, lo, hi, w, eid, valid, n = _und_case("integer_ties", 7)
+    _check_und_on_card(p.to(card), *(a[:e].to(card) for a in (lo, hi, w, eid, valid)), n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [16, 18, 20])
+def test_und_kernel_in_every_level_round_of_rmat(card, scale):
+    """Each hook round of a level over R-MAT's undirected edges, sorted by
+    lo as the levels hold them, in the three layouts of
+    :func:`_und_views`."""
+    from repro_torch.core import shortcut as sc
+    from repro_torch.core.msf import hook_and_tiebreak
+    from repro_torch.graphs.generators import rmat_graph
+
+    g = _unpacked(rmat_graph(scale, 8, seed=scale, device=card))
+    keep = g.valid & (g.src < g.dst)
+    order = torch.sort(g.src[keep], stable=True).indices
+    lo, hi, w, eid = (a[keep][order].contiguous() for a in (g.src, g.dst, g.w, g.eid))
+    valid = torch.ones_like(lo, dtype=torch.bool)
+    p = torch.arange(g.n, dtype=torch.int32, device=card)
+    rounds = 0
+    while True:
+        for k, view in enumerate(_und_views(p, lo, hi, w, eid, valid, g.n)):
+            r = _check_und_on_card(*view)
+            if k == 0:
+                whole = r
+        p_next = sc.complete_shortcut(hook_and_tiebreak(p, whole.w, whole.eid,
+                                                        whole.payload[0])[0])
+        rounds += 1
+        if torch.equal(p_next, p):
+            break
+        p = p_next
+    assert rounds >= 3  # the last round is all dead: no edge leaves a component
+
+
+@pytest.mark.gpu
+def test_coarsen_solve_launches_the_undirected_mode(card, monkeypatch):
+    """An unpacked coarsen solve of R-MAT s20 launches the undirected mode
+    once per level round and the directed one once per residual round, and
+    its forest is the one the replaced scatter route gives."""
+    from repro_torch import obs
+    from repro_torch.graphs.generators import rmat_graph
+    from repro_torch.solve import SolveSpec, plan
+
+    g = _unpacked(rmat_graph(20, 8, seed=3, device=card))
+    p = plan(g, SolveSpec(mode="coarsen"))
+    assert p.resolved.pack is False
+    before = (ops.min_outgoing_und64.launches, ops.min_outgoing_flat64.launches)
+    obs.enable("metrics")
+    try:
+        obs.metrics_reset()
+        got = p.solve()
+        torch.cuda.synchronize()
+        counters = obs.metrics_snapshot()["counters"]
+    finally:
+        obs.disable()
+        obs.metrics_reset()
+    und = ops.min_outgoing_und64.launches - before[0]
+    flat = ops.min_outgoing_flat64.launches - before[1]
+    level_rounds = len(got.levels) * p.resolved.coarsen.rounds_per_level
+    assert und == level_rounds > 0
+    assert counters["kernel.min_outgoing_und64.launches"] == und
+    assert flat == got.iterations - level_rounds
+    monkeypatch.setattr(ops, "min_outgoing_und64", und_scatter_route)
+    want = plan(g, SolveSpec(mode="coarsen")).solve()
+    assert ops.min_outgoing_und64 is und_scatter_route
+    assert sorted(got.msf_eids.tolist()) == sorted(want.msf_eids.tolist())
+    assert (got.parent == want.parent).all()
+    assert got.iterations == want.iterations
+    assert got.weight == want.weight
+    assert len(got.levels) == len(want.levels)
